@@ -5,10 +5,12 @@
 Run from the repository root on a machine with a CUDA card, nvcc and no
 JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
-(a) build the phase-1 kernel from ``gpusimilarity_tpu_torch/csrc``;
-(b) hold the kernel against its plain PyTorch version, bit for bit, on a
-    synthetic library of 113,335,291 rows x 1024 bits (the size of Enamine
-    REAL in the reference's presentation) made on the card from a seed;
+(a) build both phase-1 kernels from ``gpusimilarity_tpu_torch/csrc``, one
+    nvcc per source, started together;
+(b) hold the bitplane kernel against its plain PyTorch version, bit for
+    bit, on a synthetic library of 113,335,291 rows x 1024 bits (the size
+    of Enamine REAL in the reference's presentation) made on the card from
+    a seed;
 (c) the engine's bitplane search (k 20 and 128, batches of 1 and 32) at
     that size against a plain dense full scan over the packed rows;
 (p) where one search's time goes at that size (B 1 and 32, k 128): wall
@@ -17,17 +19,36 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 (d) the HTTP server (``python -m gpusimilarity_tpu_torch.cli.server``) on a
     1,618,358-row ``.fsim`` (the ChEMBL size of the same slide), answering
     fp_hex self-queries (two of them concurrent, one Tversky), a SMILES
-    query and a wrong-key query, checked against the plain full scan.
+    query and a wrong-key query, checked against the plain full scan;
+(e) the folded dense library at full size: a synthetic ``.tfsim`` of
+    1,020,017,472 rows (Enamine 18/12, the reference's folded
+    configuration) loaded through ``DatabaseRegistry.from_fsim_files`` with
+    no fold or mode given, which must resolve to fold 4, dense; engine
+    searches (B 1 and 32, k 20 and 128) checked for the self row first at
+    1.0, full-width scores, (-score, index) order, the plain folded count,
+    and candidates equal to a plain folded full scan's; recall@20 against
+    the full-width top 20 (printed, not required); one popless search;
+(b2) the dense kernel against its plain version, bit for bit, in (e)'s
+    store;
+(p2) the breakdown of (p) for a dense fold-4 search;
+(f) the server with ``--fold 4`` (auto resolves dense) on (d)'s library,
+    checked by (e)'s rules;
+(g) one bitplane search at fold 4 on 113,335,291 virtual rows, checked by
+    (e)'s rules.
 
-The main path is (c) and (d): the kernel's launch counter is reset just
-before (c) and read after (c) and from the server's ``/stats`` after (d);
-launches made in (b) to compare the kernel with its plain version do not
+The main path of each kernel is driven with its launch counter reset just
+before and read just after: the bitplane kernel in (c), (d) and (g), the
+dense kernel in (e) and (f) (the servers' counts come from ``/stats``).
+Launches made in (b), (b2), (p) and (p2) to compare or profile do not
 count. It prints the card's name and power limit, one JSON line describing
-the kernel, and last ``{"ok": true, "device": {...}}``.
+the kernels, the seconds of each phase, and last
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import signal
@@ -48,13 +69,32 @@ import torch
 ROOT = Path(__file__).resolve().parent
 LIB_ROWS = 113_335_291
 SERVER_ROWS = 1_618_358
+FOLDED_ROWS = 1_020_017_472  # Enamine 18/12 (BASELINE.md, slide 13)
 SEED = 2026
-KERNEL_SOURCE = "gpusimilarity_tpu_torch/csrc/bitplane_phase1.cu"
-REPLACES = "gpusimilarity_tpu/ops/pallas_bitplane.py:53"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "bitplane_phase1": ("gpusimilarity_tpu_torch/csrc/bitplane_phase1.cu",
+                        "gpusimilarity_tpu/ops/pallas_bitplane.py:53"),
+    "dense_phase1": ("gpusimilarity_tpu_torch/csrc/dense_phase1.cu",
+                     "gpusimilarity_tpu/ops/pallas_scan.py:34"),
+}
+REFERENCE_FOLD4_MS = 451.72  # 4x V100, 1.02B rows fold 4 (BASELINE.md)
+PLAIN_PREFIX_COLS = 1 << 27  # (b2): B=32 plain comparisons past the first
+
+PHASE_SECONDS: dict[str, float] = {}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.monotonic() - t0
 
 
 def gpu_line() -> str:
@@ -141,13 +181,14 @@ def phase_build():
     from gpusimilarity_tpu_torch.utils import kernels
 
     t0 = time.monotonic()
-    build = kernels.load("bitplane_phase1")
-    log(f"[a] built {build.path.name} in {build.seconds:.2f}s "
-        f"(load total {time.monotonic() - t0:.2f}s)")
-    for line in build.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[a] ptxas: {line.strip()}")
-    return build
+    builds = kernels.load_all()
+    for name, build in builds.items():
+        log(f"[a] built {build.path.name} in {build.seconds:.2f}s")
+        for line in build.log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[a] ptxas {name}: {line.strip()}")
+    log(f"[a] both kernels loaded in {time.monotonic() - t0:.2f}s")
+    return builds
 
 
 def phase_library(n_rows, device):
@@ -293,11 +334,38 @@ def phase_engine(rows, store, device, reps=5):
     return latency
 
 
-def phase_profile(rows, store, device, reps=10):
-    """Where a search's time goes, by device op."""
+def _profile_search(tag, label, fn, device, reps):
+    """Wall time of ``fn`` (CUDA events, no profiler), then its device busy
+    time and top ops from torch.profiler over ``reps`` more calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        fn()
+    wall = median_ms(fn, device, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync(device)
+    ops = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda e: -e.self_device_time_total,
+    )
+    if not ops:
+        log(f"[{tag}] {label}: wall {wall:.3f} ms per search; the profiler saw "
+            "no device ops, busy time not measured")
+        return
+    busy = sum(e.self_device_time_total for e in ops) / reps / 1e3
+    log(f"[{tag}] {label}: wall {wall:.3f} ms per search (median, CUDA events, "
+        f"no profiler); device busy {busy:.3f} ms per search (profiler, {reps} "
+        f"searches); idle share {1 - busy / wall:.3f}")
+    for e in ops[:8]:
+        log(f"[{tag}]   {e.self_device_time_total / reps / 1e3:.3f} ms "
+            f"x{e.count / reps:g}  {e.key[:90]}")
+
+
+def phase_profile(rows, store, device, reps=10):
+    """Where a bitplane search's time goes, by device op."""
     from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
     from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
     from gpusimilarity_tpu_torch.parallel.sharded import bitplane_local_topk
@@ -313,29 +381,8 @@ def phase_profile(rows, store, device, reps=10):
             torch.from_numpy(popcount_rows_np(q)).to(device),
             torch.zeros(b, dtype=torch.float32, device=device), 128,
         )
-        for _ in range(3):
-            bitplane_local_topk(*args)
-        wall = median_ms(lambda: bitplane_local_topk(*args), device, reps)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                bitplane_local_topk(*args)
-            sync(device)
-        ops = sorted(
-            (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            key=lambda e: -e.self_device_time_total,
-        )
-        if not ops:
-            log(f"[p] B={b} k=128 bucket {bucket}: wall {wall:.3f} ms per "
-                "search; the profiler saw no device ops, busy time not measured")
-            continue
-        busy = sum(e.self_device_time_total for e in ops) / reps / 1e3
-        log(f"[p] B={b} k=128 bucket {bucket}: wall {wall:.3f} ms per search "
-            f"(median, CUDA events, no profiler); device busy {busy:.3f} ms per search "
-            f"(profiler, {reps} searches); idle share {1 - busy / wall:.3f}")
-        for e in ops[:8]:
-            log(f"[p]   {e.self_device_time_total / reps / 1e3:.3f} ms "
-                f"x{e.count / reps:g}  {e.key[:90]}")
+        _profile_search("p", f"B={b} k=128 bucket {bucket}",
+                        lambda: bitplane_local_topk(*args), device, reps)
 
 
 def _free_port() -> int:
@@ -359,10 +406,12 @@ def _get(port, path):
         return json.loads(r.read())
 
 
-def phase_server(device, n_rows, server_args=()):
-    """Serve a written .fsim through the CLI and check its answers."""
-    from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows
-    from gpusimilarity_tpu_torch.serve.server import smiles_to_query_words
+def phase_server(device, n_rows, server_args=(), fold=1, tag="d",
+                 kernel="bitplane_phase1"):
+    """Serve a written .fsim through the CLI and check its answers; returns
+    the launches of ``kernel`` the server counted for them (from /stats,
+    zero when the server starts) and the number of requests."""
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows
     from gpusimilarity_tpu_torch.utils.fsim import FingerprintData, write_fsim
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
@@ -377,7 +426,7 @@ def phase_server(device, n_rows, server_args=()):
             smiles=[f"C{i}".encode() for i in range(n_rows)],
             ids=[f"SMK{i:08d}".encode() for i in range(n_rows)],
         ))
-        log(f"[d] wrote {n_rows:,}-row .fsim in {time.monotonic() - t0:.2f}s")
+        log(f"[{tag}] wrote {n_rows:,}-row .fsim in {time.monotonic() - t0:.2f}s")
         port = _free_port()
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
@@ -405,13 +454,17 @@ def phase_server(device, n_rows, server_args=()):
                 check(proc.poll() is None,
                       "server exited:\n" + "".join(lines[-30:]))
                 check(time.monotonic() - t0 < 600, "server not ready in 600 s")
-            log(f"[d] server ready in {time.monotonic() - t0:.2f}s")
-            launches0 = _get(port, "/stats")["kernel_launches"]["bitplane_phase1"]
-            count = _check_requests(port, rows, pops, smiles_to_query_words,
-                                    full_scan_topk, device)
+            log(f"[{tag}] server ready in {time.monotonic() - t0:.2f}s")
             stats = _get(port, "/stats")
-            launches = stats["kernel_launches"]["bitplane_phase1"] - launches0
-            log(f"[d] answered {count} requests; server kernel launches "
+            db_stats = stats["databases"]["smoke"]
+            log(f"[{tag}] /stats: fold {db_stats['fold_factor']}, scan mode "
+                f"{db_stats['scan_mode']}, {db_stats['device_bytes']:,} device bytes")
+            check(db_stats["fold_factor"] == fold, f"server fold {db_stats['fold_factor']}")
+            launches0 = stats["kernel_launches"][kernel]
+            count = _check_requests(port, rows, pops, device, fold, tag)
+            stats = _get(port, "/stats")
+            launches = stats["kernel_launches"][kernel] - launches0
+            log(f"[{tag}] answered {count} requests; server {kernel} launches "
                 f"{launches}; /stats searches {stats['searches']}")
         finally:
             proc.send_signal(signal.SIGINT)
@@ -423,11 +476,41 @@ def phase_server(device, n_rows, server_args=()):
         return launches, count
 
 
-def _check_requests(port, rows, pops, smiles_to_query_words, full_scan_topk,
-                    device):
+def _check_folded(tag, name, got_scores, got_idx, want_count, approx, full,
+                  cut, self_row=None):
+    """Rules of a folded search: the query's own row first at 1.0, every
+    score its row's full-width score, (-score, index) order, every score
+    >= the cutoff, and the approximate count equal to the plain folded
+    count."""
+    got_scores = np.asarray(got_scores, np.float32)
+    if self_row is not None:
+        check(len(got_idx) > 0 and got_idx[0] == self_row and got_scores[0] == 1.0,
+              f"{name}: self row not first at 1.0")
+    check(np.array_equal(got_scores, np.asarray(full, np.float32)),
+          f"{name}: returned scores are not their rows' full-width scores")
+    check(all(a > b or (a == b and i < j) for a, b, i, j in zip(
+        got_scores, got_scores[1:], got_idx, got_idx[1:])),
+        f"{name}: not in (-score, index) order")
+    check(bool((got_scores >= cut).all()), f"{name}: score below the cutoff")
+    check(approx == want_count,
+          f"{name}: approximate count {approx} != folded count {want_count}")
+
+
+def _check_requests(port, rows, pops, device, fold=1, tag="d"):
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+    from gpusimilarity_tpu_torch.ops.scan import (
+        full_scan_topk,
+        popcount_rows,
+        scores_np,
+    )
+    from gpusimilarity_tpu_torch.serve.server import smiles_to_query_words
+
     n = rows.shape[0]
     rng = np.random.default_rng(SEED + 3)
     picks = [int(i) for i in rng.integers(0, n, 4)]
+    if fold > 1:
+        folded = fold_words(rows, fold)
+        fpops = popcount_rows(folded)
 
     def fp_form(i, k, cut, **extra):
         hexq = rows[i].cpu().numpy().view(np.uint8).tobytes().hex()
@@ -463,35 +546,336 @@ def _check_requests(port, rows, pops, smiles_to_query_words, full_scan_topk,
     check(not any(t.is_alive() for t in pair), "concurrent requests hung")
     ask(3)
     ask(4)
-    for (q, form), reply in zip(requests, replies):
+    for ri, ((q, form), reply) in enumerate(zip(requests, replies)):
         check(set(reply) >= {"approximate_count", "results"}, "reply shape")
         sim = form.get("similarity", "tanimoto")
         ab = (float(form.get("alpha", 1)), float(form.get("beta", 1)))
         k, cut = int(form["return_count"]), float(form.get("similarity_cutoff", 0))
-        v, _i, c = full_scan_topk(
-            rows, pops, q[None, :], k,
-            torch.tensor([cut], dtype=torch.float32, device=device), sim, *ab,
-        )
-        want = v[0][v[0] >= cut].cpu().numpy()
+        cut_t = torch.tensor([cut], dtype=torch.float32, device=device)
         got = np.array([r[2] for r in reply["results"]], np.float32)
         check(all(len(r) == 3 and isinstance(r[0], str) and isinstance(r[1], str)
                   for r in reply["results"]), "result rows are [id, smiles, score]")
-        check(np.array_equal(got, want), f"{form.get('smiles') or 'fp_hex'} "
-              f"k={k}: scores differ from the full scan")
-        check(reply["approximate_count"] == int(c[0]), "approximate count differs")
-        for cid, smi, score in reply["results"]:
-            i = int(cid[3:])
+        idx = [int(cid[3:]) for cid, _smi, _score in reply["results"]]
+        for i, (_cid, smi, _score) in zip(idx, reply["results"]):
             check(smi == f"C{i}", "id and smiles disagree")
-        if "fp_hex" in form:
-            check(got[0] == 1.0, "self-query not 1.0 at rank 0")
-        log(f"[d] {form.get('smiles') or 'fp_hex'} {sim} k={k} cut={cut}: "
-            f"{len(got)} results, approximate_count {reply['approximate_count']}, "
-            "exact against the full scan")
+        what = form.get("smiles") or "fp_hex"
+        if fold == 1:
+            v, _i, c = full_scan_topk(rows, pops, q[None, :], k, cut_t, sim, *ab)
+            want = v[0][v[0] >= cut].cpu().numpy()
+            check(np.array_equal(got, want), f"{what} k={k}: scores differ from "
+                  "the full scan")
+            check(reply["approximate_count"] == int(c[0]), "approximate count differs")
+            if "fp_hex" in form:
+                check(got[0] == 1.0, "self-query not 1.0 at rank 0")
+        else:
+            _v, _i, c = full_scan_topk(
+                folded, fpops, fold_words(q[None, :], fold), 1, cut_t, sim, *ab
+            )
+            full = scores_np(
+                rows[idx].cpu().numpy().view(np.uint32),
+                q.cpu().numpy().view(np.uint32), sim, *ab,
+            )
+            _check_folded(tag, f"{what} {sim} k={k}", got, idx, int(c[0]),
+                          reply["approximate_count"], full, cut,
+                          picks[ri] if "fp_hex" in form else None)
+        log(f"[{tag}] {what} {sim} k={k} cut={cut}: {len(got)} results, "
+            f"approximate_count {reply['approximate_count']}, exact against "
+            + ("the full scan" if fold == 1 else "full-width rescore and the "
+               "folded full scan"))
     wrong = _post(port, {**requests[0][1], "dbkeys": "wrong"})
     check(wrong["results"] == [] and wrong["approximate_count"] == 0,
           "wrong dbkey must return no results")
-    log("[d] wrong dbkey: results []")
+    log(f"[{tag}] wrong dbkey: results []")
     return len(requests) + 1
+
+
+def phase_folded_library(device, n_rows, tmp):
+    """(e) Write a synthetic .tfsim and load it through the registry with
+    no fold or mode given."""
+    from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
+    from gpusimilarity_tpu_torch.parallel.mesh import available_device_memory
+    from gpusimilarity_tpu_torch.utils.fsim import (
+        ConstantStringTable,
+        FingerprintData,
+        VirtualFingerprints,
+        save_native,
+    )
+
+    path = Path(tmp) / "enamine.tfsim"
+    save_native(path, FingerprintData(
+        dbkey="enamine", bitcount=1024,
+        fingerprints=VirtualFingerprints(n_rows, 1024, SEED),
+        smiles=ConstantStringTable(b"C", n_rows),
+        ids=ConstantStringTable(b"ENAMINE", n_rows),
+    ))
+    free = available_device_memory(device)
+    log(f"[e] synthetic .tfsim of {n_rows:,} rows x 1024 bits "
+        f"({n_rows * 128 / 1e9:.2f} GB at full width); free device memory "
+        f"{free / 1e9 if free else float('nan'):.2f} GB")
+    t0 = time.monotonic()
+    reg = DatabaseRegistry.from_fsim_files([str(path)], device)
+    sync(device)
+    build_s = time.monotonic() - t0
+    db = reg.get("enamine")
+    free = available_device_memory(device)
+    log(f"[e] registry resolved fold {db.fold_factor}, scan mode {db.scan_mode}; "
+        f"store {db.store.nbytes:,} bytes ({db.store.word_count} words/row, "
+        f"popcounts {'no' if db.store.popcounts is None else 'yes'}); built in "
+        f"{build_s:.2f}s; free device memory "
+        f"{free / 1e9 if free else float('nan'):.2f} GB")
+    check(db.fold_factor == 4 and db.scan_mode == "dense",
+          f"expected fold 4 dense, got fold {db.fold_factor} {db.scan_mode}")
+    return db
+
+
+def full_width_topk(n_rows, queries_full, k, seed, device, chunk=1 << 18):
+    """Exact full-width lowest-index top-k of the virtual library: rows made
+    on the card chunk by chunk, intersection counts as a float32 product of
+    0/1 bit matrices (exact: sums <= 1024). The recall oracle."""
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows, similarity_from_counts
+    from gpusimilarity_tpu_torch.ops.topk import topk_lowest_index
+    from gpusimilarity_tpu_torch.utils.synth import virtual_rows
+
+    shifts = torch.arange(32, dtype=torch.int32, device=device)
+
+    def bits(words):
+        return ((words[:, :, None] >> shifts) & 1).reshape(len(words), -1).float()
+
+    q = torch.from_numpy(queries_full.view(np.int32)).to(device)
+    qbits, qpops = bits(q), popcount_rows(q)
+    b = len(q)
+    best_v = torch.empty((b, 0), device=device)
+    best_i = torch.empty((b, 0), dtype=torch.int64, device=device)
+    for lo in range(0, n_rows, chunk):
+        hi = min(n_rows, lo + chunk)
+        r = virtual_rows(lo, hi - lo, 32, seed, device)
+        common = (bits(r) @ qbits.T).T.to(torch.int32)  # (B, chunk)
+        s = similarity_from_counts(common, popcount_rows(r), qpops)
+        v = torch.cat([best_v, s], dim=1)
+        i = torch.cat([best_i, torch.arange(lo, hi, device=device).expand(b, -1)], dim=1)
+        best_v, pos = topk_lowest_index(v, min(k, v.shape[1]), tiebreak=i)
+        best_i = torch.gather(i, 1, pos)
+    return best_v, best_i
+
+
+def phase_folded_engine(db, device, reps=(5, 3)):
+    """(e) Engine searches on the folded dense library, each result held to
+    the full-width rescore, the plain folded full scan and its order."""
+    from gpusimilarity_tpu_torch.models.fingerprint_db import _k_bucket
+    from gpusimilarity_tpu_torch.ops.fold import fold_words, overfetch_count
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np, scores_np
+    from gpusimilarity_tpu_torch.parallel.sharded import (
+        DenseStore,
+        dense_full_scan_topk,
+        dense_local_topk,
+    )
+    from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
+
+    n, store, fold = db.count, db.store, db.fold_factor
+    rows = pick_query_rows(32, n, fold, seed=SEED)
+    qfull = virtual_rows_np(rows, seed=SEED)
+    qf = np.ascontiguousarray(fold_words(qfull, fold))
+    cut32 = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
+    qt = torch.from_numpy(qf.view(np.int32)).to(device)
+    qp = torch.from_numpy(popcount_rows_np(qf)).to(device)
+    ct = torch.from_numpy(cut32).to(device)
+    k_fetch_max = _k_bucket(overfetch_count(128, fold), n)
+    t0 = time.monotonic()
+    ov, oi, oc = dense_full_scan_topk(store, qt, qp, ct, k_fetch_max)
+    sync(device)
+    log(f"[e] plain folded full scan (B=32, top {k_fetch_max}) in "
+        f"{time.monotonic() - t0:.2f}s; query folded popcounts "
+        f"{int(qp.min())}-{int(qp.max())}")
+    latency, results = {}, {}
+    for b, k in ((1, 20), (1, 128), (32, 20), (32, 128)):
+        res = db.search_batch(qfull[:b], k, cut32[:b], db.dbkey, return_indices=True)
+        results[(b, k)] = res
+        for qi, r in enumerate(res):
+            full = scores_np(virtual_rows_np(np.array(r.indices), seed=SEED), qfull[qi])
+            _check_folded("e", f"B={b} k={k} q{qi}", r.scores, r.indices,
+                          int(oc[qi]), r.approximate_count, full, cut32[qi],
+                          int(rows[qi]))
+        k_fetch = _k_bucket(overfetch_count(k, fold), n)
+        v, i, c = dense_local_topk(store, qt[:b], qp[:b], ct[:b], k_fetch)
+        check(torch.equal(v, ov[:b, :k_fetch]) and torch.equal(i, oi[:b, :k_fetch]),
+              f"B={b} k={k}: device candidates differ from the plain folded scan")
+        check(torch.equal(c, oc[:b]), f"B={b} k={k}: device counts differ")
+        ts = []
+        for _ in range(reps[0] if b == 1 else reps[1]):
+            t0 = time.perf_counter()
+            db.search_batch(qfull[:b], k, cut32[:b], db.dbkey)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        latency[(b, k)] = statistics.median(ts)
+        log(f"[e] engine B={b} k={k} (k_fetch {k_fetch}): rules 1-5 hold "
+            f"(count[0]={res[0].approximate_count}); search_batch median "
+            f"{latency[(b, k)]:.3f} ms (host clock, rescore included)")
+    log(f"[e] B=1 latency {latency[(1, 20)]:.3f} ms (k=20) / "
+        f"{latency[(1, 128)]:.3f} ms (k=128) beside the reference's "
+        f"{REFERENCE_FOLD4_MS} ms on 4x V100 at fold 4 (a yardstick, not a claim)")
+
+    # one popless engine search: the same words, no popcount array
+    pdb = copy.copy(db)
+    pdb._store = DenseStore(words=store.words, popcounts=None, n_valid=n)
+    pdb.popless = True
+    pres = pdb.search_batch(qfull, 128, cut32, db.dbkey, return_indices=True)
+    for p_r, r in zip(pres, results[(32, 128)]):
+        check((p_r.scores, p_r.indices, p_r.approximate_count)
+              == (r.scores, r.indices, r.approximate_count),
+              "popless search differs from the search with popcounts")
+    log("[e] popless search B=32 k=128: identical to the search with popcounts")
+
+    t0 = time.monotonic()
+    tv, ti = full_width_topk(n, qfull, 20, SEED, device)
+    sync(device)
+    got = db.search_batch(qfull, 20, 0.0, db.dbkey, return_indices=True)
+    hits = [len(set(r.indices) & set(ti[qi].tolist())) / 20 for qi, r in enumerate(got)]
+    log(f"[e] recall@20 against the full-width top 20 (B=32, cutoff 0): mean "
+        f"{statistics.mean(hits):.4f}, min {min(hits):.2f}; full-width oracle in "
+        f"{time.monotonic() - t0:.2f}s")
+    return latency
+
+
+def phase_dense_kernel_vs_plain(store, device, reps=(20, 10)):
+    """(b2) The dense kernel against its plain version, bit for bit, in
+    (e)'s store: Tanimoto cutoffs 0 and 0.35 (mixed in one launch),
+    Tversky 0.7/0.3, popless, B 1 and 32, a zero query."""
+    from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
+
+    n = store.n_valid
+    fold = 32 // store.word_count
+    rows = pick_query_rows(31, n, fold, seed=SEED, rng_seed=SEED)
+    q32 = np.concatenate([
+        fold_words(virtual_rows_np(rows, seed=SEED), fold),
+        np.zeros((1, store.word_count), np.uint32),
+    ])  # 31 library rows + a zero query
+    mixed = np.where(np.arange(32) % 2 == 0, 0.0, 0.35).astype(np.float32)
+    prefix = min(PLAIN_PREFIX_COLS, store.n_padded)
+    cases = [
+        # name, queries, cutoffs, similarity, alpha/beta, popless, columns
+        ("B1 tanimoto cut0.35", q32[:1], [0.35], "tanimoto", (1, 1), False, None),
+        ("B1 tversky cut0.35", q32[:1], [0.35], "tversky", (0.7, 0.3), False, None),
+        ("B1 popless cut0", q32[:1], [0.0], "tanimoto", (1, 1), True, None),
+        ("B32 tanimoto cut0/0.35", q32, mixed, "tanimoto", (1, 1), False, None),
+        ("B32 tversky cut0.35", q32, [0.35] * 32, "tversky", (0.7, 0.3), False, prefix),
+        ("B32 popless cut0/0.35", q32, mixed, "tanimoto", (1, 1), True, prefix),
+    ]
+    max_err, timing = 0.0, {}
+    for name, q, cut, sim, ab, popless, cols in cases:
+        words = store.words if cols is None else store.words[:, :cols]
+        pops = None if popless else store.popcounts[:words.shape[1]]
+        args = (
+            words, pops, torch.from_numpy(q.view(np.int32)).to(device),
+            torch.from_numpy(popcount_rows_np(q)).to(device),
+            torch.tensor(cut, dtype=torch.float32, device=device),
+            torch.tensor(ab, dtype=torch.float32, device=device), n, 256, sim,
+        )
+        bm, cnt = ph2.dense_phase1(*args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        pbm, pcnt = ph2.dense_phase1_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        finite = torch.isfinite(bm) & torch.isfinite(pbm)
+        err = (bm[finite] - pbm[finite]).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.isneginf(bm).eq(torch.isneginf(pbm)).all().item(),
+              f"{name}: -inf pattern differs")
+        check(torch.equal(bm.view(torch.int32), pbm.view(torch.int32)),
+              f"{name}: block maxima not bit-identical (max abs err {err})")
+        check(torch.equal(cnt, pcnt), f"{name}: counts differ")
+        if cut[0] == 0.0:
+            want = min(n, words.shape[1])
+            check(int(cnt[0]) == want, f"{name}: cutoff-0 count {int(cnt[0])} != {want}")
+        if len(q) == 32:
+            check(bm[31].max().item() == 0.0, f"{name}: zero query not 0")
+        where = "all rows" if cols is None else f"the first {cols:,} columns"
+        log(f"[b2] {name} over {where}: block maxima and counts bit-identical "
+            f"(counts[0]={int(cnt[0])}, max abs err {err}); plain {plain_ms:.3f} ms")
+        if cols is None and not popless and sim == "tanimoto":
+            b = len(q)
+            k_ms = median_ms(lambda: ph2.dense_phase1_kernel(*args), device,
+                             reps[0] if b == 1 else reps[1])
+            timing[b] = (k_ms, plain_ms)
+            log(f"[b2] B={b} at {n:,} rows: kernel median {k_ms:.3f} ms (one "
+                f"launch and its zeroed counts), plain {plain_ms:.3f} ms (one run)")
+    return max_err, timing
+
+
+def phase_profile_dense(store, device, reps=10):
+    """(p2) Where a dense fold-4 search's time goes, by device op."""
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.parallel.sharded import dense_local_topk
+    from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
+
+    fold = 32 // store.word_count
+    rows = pick_query_rows(32, store.n_valid, fold, seed=SEED, rng_seed=SEED + 5)
+    q32 = np.ascontiguousarray(fold_words(virtual_rows_np(rows, seed=SEED), fold))
+    for b in (1, 32):
+        q = q32[:b]
+        args = (
+            store, torch.from_numpy(q.view(np.int32)).to(device),
+            torch.from_numpy(popcount_rows_np(q)).to(device),
+            torch.zeros(b, dtype=torch.float32, device=device), 2048,
+        )
+        _profile_search("p2", f"B={b} k=128 (k_fetch 2048) fold {fold}",
+                        lambda: dense_local_topk(*args), device, reps)
+
+
+def phase_bitplane_fold(device, n_rows, fold=4):
+    """(g) One B=32, k=128 bitplane search at fold 4 on a virtual library,
+    checked by (e)'s rules; returns the bitplane kernel's launches."""
+    from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
+    from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+    from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows, scores_np
+    from gpusimilarity_tpu_torch.utils.fsim import (
+        ConstantStringTable,
+        FingerprintData,
+        VirtualFingerprints,
+    )
+    from gpusimilarity_tpu_torch.utils.synth import (
+        pick_query_rows,
+        virtual_folded_rows,
+        virtual_rows_np,
+    )
+
+    data = FingerprintData(
+        dbkey="g", bitcount=1024, fingerprints=VirtualFingerprints(n_rows, 1024, SEED),
+        smiles=ConstantStringTable(b"C", n_rows), ids=ConstantStringTable(b"G", n_rows),
+    )
+    t0 = time.monotonic()
+    db = FingerprintDB(data, device=device, fold_factor=fold, scan_mode="bitplane")
+    sync(device)
+    log(f"[g] bitplane store of {n_rows:,} virtual rows at fold {fold}: "
+        f"{db.store.planes.shape[0]} planes, {db.store.nbytes:,} bytes, built in "
+        f"{time.monotonic() - t0:.2f}s")
+    rows = pick_query_rows(32, n_rows, fold, seed=SEED, rng_seed=SEED + 9)
+    qfull = virtual_rows_np(rows, seed=SEED)
+    cut = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
+    ph1.reset_launch_count()
+    t0 = time.perf_counter()
+    res = db.search_batch(qfull, 128, cut, "g", return_indices=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ph1.launch_count()
+    folded = virtual_folded_rows(n_rows, fold, 32, SEED, device)
+    qf = np.ascontiguousarray(fold_words(qfull, fold))
+    _v, _i, counts = full_scan_topk(
+        folded, popcount_rows(folded), torch.from_numpy(qf.view(np.int32)).to(device),
+        1, torch.from_numpy(cut).to(device),
+    )
+    for qi, r in enumerate(res):
+        full = scores_np(virtual_rows_np(np.array(r.indices), seed=SEED), qfull[qi])
+        _check_folded("g", f"q{qi}", r.scores, r.indices, int(counts[qi]),
+                      r.approximate_count, full, cut[qi], int(rows[qi]))
+    log(f"[g] B=32 k=128 at fold {fold}: rules 1-4 hold for every query; "
+        f"search_batch {ms:.3f} ms (host clock, rescore included); "
+        f"bitplane launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -504,38 +888,89 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(gpu_line())
     from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
+    from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
 
-    build = phase_build()
+    with phase("a"):
+        builds = phase_build()
 
-    rows, store = phase_library(LIB_ROWS, device)
-    before = ph1.launch_count()
-    max_err, timing = phase_kernel_vs_plain(rows, store, device)
-    check(ph1.launch_count() > before, "(b) launched no kernel")
+    with phase("b"):
+        rows, store = phase_library(LIB_ROWS, device)
+        before = ph1.launch_count()
+        max_err, timing = phase_kernel_vs_plain(rows, store, device)
+        check(ph1.launch_count() > before, "(b) launched no kernel")
 
-    ph1.reset_launch_count()  # the main path starts here
-    latency = phase_engine(rows, store, device)
-    engine_launches = ph1.launch_count()
-    check(engine_launches > 0, "(c) launched no kernel")
-    phase_profile(rows, store, device)
+    with phase("c"):
+        ph1.reset_launch_count()  # the bitplane main path starts here
+        latency = phase_engine(rows, store, device)
+        engine_launches = ph1.launch_count()
+        check(engine_launches > 0, "(c) launched no kernel")
+    with phase("p"):
+        phase_profile(rows, store, device)
     del rows, store
     torch.cuda.empty_cache()
 
-    server_launches, n_requests = phase_server(device, SERVER_ROWS)
-    check(server_launches > 0, "(d) launched no kernel")
-    check(n_requests >= 4, "fewer than 4 requests answered")
-    log(f"main path kernel launches: engine {engine_launches}, "
-        f"server {server_launches}")
-    log(f"total {time.monotonic() - t_start:.1f}s; engine latency (ms) "
-        + ", ".join(f"B={b} k={k}: {ms:.3f}" for (b, k), ms in latency.items()))
+    with phase("d"):
+        server_launches, n_requests = phase_server(device, SERVER_ROWS)
+        check(server_launches > 0, "(d) launched no kernel")
+        check(n_requests >= 4, "fewer than 4 requests answered")
+    torch.cuda.empty_cache()
 
-    k_ms, p_ms = timing[32]
-    log(json.dumps({"kernels": [{
-        "name": "bitplane_phase1", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": engine_launches + server_launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-        "build_s": build.seconds, "ms_b1": timing[1][0],
-        "plain_ms_b1": timing[1][1],
-    }]}))
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("e"):
+            ph2.reset_launch_count()  # the dense main path starts here
+            db = phase_folded_library(device, FOLDED_ROWS, tmp)
+            folded_latency = phase_folded_engine(db, device)
+            dense_engine_launches = ph2.launch_count()
+            check(dense_engine_launches > 0, "(e) launched no dense kernel")
+        with phase("b2"):
+            before = ph2.launch_count()
+            max_err2, timing2 = phase_dense_kernel_vs_plain(db.store, device)
+            check(ph2.launch_count() > before, "(b2) launched no kernel")
+        with phase("p2"):
+            phase_profile_dense(db.store, device)
+        del db
+    torch.cuda.empty_cache()
+
+    with phase("f"):
+        folded_server_launches, n_requests = phase_server(
+            device, SERVER_ROWS, ("--fold", "4"), fold=4, tag="f",
+            kernel="dense_phase1",
+        )
+        check(folded_server_launches > 0, "(f) launched no dense kernel")
+        check(n_requests >= 4, "fewer than 4 requests answered")
+    torch.cuda.empty_cache()
+
+    with phase("g"):
+        fold_launches = phase_bitplane_fold(device, LIB_ROWS)
+        check(fold_launches > 0, "(g) launched no kernel")
+
+    log(f"main path kernel launches: bitplane engine {engine_launches}, "
+        f"server {server_launches}, fold 4 {fold_launches}; dense engine "
+        f"{dense_engine_launches}, server {folded_server_launches}")
+    log(f"engine latency (ms) unfolded 113,335,291 rows: "
+        + ", ".join(f"B={b} k={k}: {ms:.3f}" for (b, k), ms in latency.items()))
+    log(f"engine latency (ms) fold 4 1,020,017,472 rows: "
+        + ", ".join(f"B={b} k={k}: {ms:.3f}" for (b, k), ms in folded_latency.items()))
+    log("phase seconds: " + ", ".join(
+        f"({name}) {sec:.1f}" for name, sec in PHASE_SECONDS.items()))
+    log(f"total {time.monotonic() - t_start:.1f}s")
+
+    def entry(name, launches, err, times):
+        source, replaces = KERNELS[name]
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": times[32][0], "plain_ms": times[32][1],
+            "build_s": builds[name].seconds, "ms_b1": times[1][0],
+            "plain_ms_b1": times[1][1],
+        }
+
+    log(json.dumps({"kernels": [
+        entry("bitplane_phase1", engine_launches + server_launches + fold_launches,
+              max_err, timing),
+        entry("dense_phase1", dense_engine_launches + folded_server_launches,
+              max_err2, timing2),
+    ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

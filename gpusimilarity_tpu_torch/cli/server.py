@@ -4,9 +4,11 @@
     python -m gpusimilarity_tpu_torch.cli.server db.fsim [more.fsim ...] --port 8080
 
 The device is the first CUDA card; without one the server raises, unless
-``--cpu_only`` asks for the plain PyTorch path on the host. The phase-1
-kernel is built (or loaded from its cached build) before the server prints
-``ready``.
+``--cpu_only`` asks for the plain PyTorch path on the host. Both phase-1
+kernels are built (or loaded from their cached builds) before the server
+prints ``ready``. ``--fold``, ``--gpu_bitcount``, ``--scan_mode`` and
+``--popless`` choose the store as in the JAX server; a library too large
+for the card is folded and served dense.
 """
 
 from __future__ import annotations
@@ -29,6 +31,26 @@ def parse_args(argv=None):
         "--cpu_only", action="store_true",
         help="run the plain PyTorch path on the host CPU instead of the GPU",
     )
+    parser.add_argument(
+        "--gpu_bitcount", "--device_bitcount", dest="device_bitcount",
+        default=0, type=int,
+        help="maximum on-device fingerprint bitcount (forces folding)",
+    )
+    parser.add_argument(
+        "--fold", default=None, type=int,
+        help="explicit fold factor (default: auto from free device memory)",
+    )
+    parser.add_argument(
+        "--scan_mode", default="auto", choices=("auto", "dense", "bitplane"),
+        help="dense packed-word scan, bit-sliced sparse-query scan, or auto "
+        "(bitplane unfolded, dense folded)",
+    )
+    parser.add_argument(
+        "--popless", action="store_true",
+        help="dense store without the per-column popcount array (the scan "
+        "recomputes popcounts from the words it reads): 2 B/row of device "
+        "memory back",
+    )
     parser.add_argument("--max_batch", default=64, type=int,
                         help="max queries coalesced into one kernel launch")
     parser.add_argument("--batch_window_ms", default=2.0, type=float,
@@ -49,16 +71,19 @@ def main(argv=None):
     if device.type == "cuda":
         from ..utils import kernels
 
-        build = kernels.load("bitplane_phase1")
-        logging.getLogger("tpusimilarity").info(
-            "phase-1 kernel ready (%s, built in %.1fs)", build.path.name,
-            build.seconds,
-        )
+        for name, build in kernels.load_all().items():
+            logging.getLogger("tpusimilarity").info(
+                "%s kernel ready (%s, built in %.1fs)", name, build.path.name,
+                build.seconds,
+            )
 
     from ..models.registry import DatabaseRegistry
     from ..serve.server import SimilarityServer
 
-    registry = DatabaseRegistry.from_fsim_files(args.dbnames, device=device)
+    registry = DatabaseRegistry.from_fsim_files(
+        args.dbnames, device=device, device_bitcount=args.device_bitcount,
+        fold_factor=args.fold, scan_mode=args.scan_mode, popless=args.popless,
+    )
     server = SimilarityServer(
         registry,
         hostname=args.hostname,

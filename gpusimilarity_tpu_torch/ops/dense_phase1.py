@@ -1,0 +1,186 @@
+"""Phase 1 of the dense scan (twin of ``gpusimilarity_tpu/ops/pallas_scan.py``).
+
+:func:`dense_phase1` scores a query batch against every column of a planar
+dense store ``(Wf, N)`` and returns, per query, the maximum score of every
+selection block of ``block`` consecutive columns and the count of valid
+columns scoring >= the query's cutoff. Nothing per column leaves the
+kernel.
+
+For CUDA tensors it launches the hand-written kernel
+``csrc/dense_phase1.cu`` or raises; it never falls back. For CPU tensors it
+runs :func:`dense_phase1_plain`, the plain PyTorch version of the same
+function, which the tests hold against the JAX Pallas kernel and which the
+kernel matches bit for bit on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from .scan import TANIMOTO, TVERSKY, score_columns
+
+# the kernel's thread block: 256 columns, so a selection block is 1..256
+MAX_BLOCK = 256
+
+_LAUNCH_LOCK = threading.Lock()
+_launches = 0
+
+
+def launch_count() -> int:
+    """Kernel launches since the last :func:`reset_launch_count`."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    with _LAUNCH_LOCK:
+        _launches = 0
+
+
+def _count_launch() -> None:
+    global _launches
+    with _LAUNCH_LOCK:
+        _launches += 1
+
+
+def dense_phase1_plain(
+    words: torch.Tensor,
+    pops: torch.Tensor | None,
+    queries: torch.Tensor,
+    query_pops: torch.Tensor,
+    cutoffs: torch.Tensor,
+    alpha_beta: torch.Tensor,
+    n_valid: int,
+    block: int,
+    similarity: str = TANIMOTO,
+    chunk_cols: int = 1 << 21,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch phase 1: ``(block_max f32 (B, N/block), counts int64
+    (B,))``.
+
+    The whole batch at once, in column chunks of ``chunk_cols`` so the
+    ``(B, chunk)`` temporaries stay small at 10^9 columns: score the chunk
+    (:func:`score_columns`, popcounts recomputed when ``pops`` is None),
+    mask columns ``>= n_valid`` to -inf, reduce block maxima and counts.
+    """
+    b = queries.shape[0]
+    n = words.shape[1]
+    dev = words.device
+    alpha, beta = (float(v) for v in alpha_beta.tolist())
+    chunk = max(block, chunk_cols // block * block)
+    block_max = torch.empty((b, n // block), dtype=torch.float32, device=dev)
+    counts = torch.zeros(b, dtype=torch.int64, device=dev)
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        s = score_columns(
+            words[:, c0:c1], None if pops is None else pops[c0:c1], queries,
+            query_pops, similarity, alpha, beta,
+        )
+        cols = torch.arange(c0, c1, device=dev)
+        s = torch.where(cols < n_valid, s, float("-inf"))
+        block_max[:, c0 // block:c1 // block] = s.view(b, -1, block).amax(dim=-1)
+        counts += (s >= cutoffs[:, None]).sum(dim=-1)
+    return block_max, counts
+
+
+_FN = None
+
+
+def _kernel_fn():
+    global _FN
+    if _FN is None:
+        from ..utils import kernels
+
+        lib = kernels.load("dense_phase1").lib
+        fn = lib.gpusim_dense_phase1
+        ptr = ctypes.c_void_p
+        ll, i32 = ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [ptr] * 8 + [ll, ll, i32, i32, i32, ll, i32, ptr]
+        fn.restype = ctypes.c_int
+        lib.gpusim_error_string.argtypes = [ctypes.c_int]
+        lib.gpusim_error_string.restype = ctypes.c_char_p
+        _FN = (fn, lib.gpusim_error_string)
+    return _FN
+
+
+def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
+                        n_valid, block, similarity=TANIMOTO):
+    """One launch of ``csrc/dense_phase1.cu`` on CUDA tensors already
+    checked by :func:`dense_phase1`: ``(block_max, counts)`` as
+    :func:`dense_phase1_plain` returns them. ``words`` may be a column
+    prefix of a wider store (its row stride is passed). Raises if the
+    launch fails."""
+    if words.device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {words.device}")
+    wf, n = words.shape
+    b = queries.shape[0]
+    fn, err = _kernel_fn()
+    block_max = torch.empty((b, n // block), dtype=torch.float32, device=words.device)
+    counts = torch.zeros(b, dtype=torch.int64, device=words.device)
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    rc = fn(
+        words.data_ptr(), 0 if pops is None else pops.data_ptr(),
+        queries.data_ptr(), query_pops.data_ptr(), cutoffs.data_ptr(),
+        alpha_beta.data_ptr(), block_max.data_ptr(), counts.data_ptr(),
+        n, words.stride(0), wf, b, block, int(n_valid),
+        int(similarity == TVERSKY), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"dense phase-1 kernel launch failed: {err(rc).decode()}"
+        )
+    _count_launch()
+    return block_max, counts
+
+
+def dense_phase1(
+    words: torch.Tensor,
+    pops: torch.Tensor | None,
+    queries: torch.Tensor,
+    query_pops: torch.Tensor,
+    cutoffs: torch.Tensor,
+    alpha_beta: torch.Tensor,
+    n_valid: int,
+    block: int,
+    similarity: str = TANIMOTO,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 for a query batch.
+
+    ``words`` int32 ``(Wf, N)`` planar, unit column stride; ``pops`` int16
+    ``(N,)`` or None for a popless store; ``queries`` int32 ``(B, Wf)``;
+    ``query_pops`` int32 ``(B,)``; ``cutoffs`` f32 ``(B,)``;
+    ``alpha_beta`` f32 ``(2,)``; ``block`` a power of two up to 256 that
+    divides N. Returns ``(block_max f32 (B, N/block), counts int64 (B,))``.
+    """
+    if similarity not in (TANIMOTO, TVERSKY):
+        raise ValueError(f"unknown similarity {similarity!r}")
+    wf, n = words.shape
+    b = queries.shape[0]
+    if words.dtype != torch.int32 or words.stride(1) != 1:
+        raise ValueError("words must be int32 (Wf, N) with unit column stride")
+    args = [(queries, torch.int32, (b, wf)), (query_pops, torch.int32, (b,)),
+            (cutoffs, torch.float32, (b,)), (alpha_beta, torch.float32, (2,))]
+    if pops is not None:
+        args.append((pops, torch.int16, (n,)))
+    for t, dtype, shape in args:
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"expected contiguous {dtype} {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if t.device != words.device:
+            raise ValueError("all inputs must be on one device")
+    if not 1 <= block <= MAX_BLOCK or block & (block - 1) or n % block:
+        raise ValueError(
+            f"block {block} must be a power of two <= {MAX_BLOCK} dividing {n}"
+        )
+    args = (words, pops, queries, query_pops, cutoffs, alpha_beta, n_valid, block,
+            similarity)
+    if words.device.type == "cuda":
+        return dense_phase1_kernel(*args)
+    if words.device.type == "cpu":
+        return dense_phase1_plain(*args)
+    raise ValueError(f"unsupported device {words.device}")

@@ -32,6 +32,33 @@ def popcount_rows_np(words: np.ndarray) -> np.ndarray:
     return _POPCOUNT_TABLE[as_bytes].sum(axis=-1, dtype=np.int32)
 
 
+def scores_np(
+    db_words: np.ndarray,
+    query_words: np.ndarray,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+) -> np.ndarray:
+    """Numpy scores of packed rows against packed queries (twin of the JAX
+    package's ``scores_np``): ``(N, W), (..., W) -> f32 (..., N)``,
+    computed in float64 and rounded once to float32. The host rescore of
+    folded-scan candidates when the native library is absent."""
+    inter = np.ascontiguousarray(db_words & query_words[..., None, :])
+    c = _POPCOUNT_TABLE[inter.view(np.uint8)].sum(axis=-1)
+    dp = popcount_rows_np(db_words).astype(np.float64)
+    qp = popcount_rows_np(query_words.reshape(-1, query_words.shape[-1]))
+    qp = qp.reshape(query_words.shape[:-1])[..., None].astype(np.float64)
+    if similarity == TANIMOTO:
+        denom = qp + dp - c
+    elif similarity == TVERSKY:
+        denom = alpha * (qp - c) + beta * (dp - c) + c
+    else:
+        raise ValueError(f"unknown similarity {similarity!r}")
+    with np.errstate(invalid="ignore", divide="ignore"):
+        out = np.where(denom > 0, c / denom, 0.0)
+    return out.astype(np.float32)
+
+
 def _popcount16(v: torch.Tensor) -> torch.Tensor:
     v = v - ((v >> 1) & 0x5555)
     v = (v & 0x3333) + ((v >> 2) & 0x3333)
@@ -104,6 +131,29 @@ def score_batch(
     c = common_bits(db_words, query_words)
     return similarity_from_counts(
         c, db_popcounts, query_popcounts, similarity, alpha, beta
+    )
+
+
+def score_columns(
+    cols: torch.Tensor,
+    col_pops: torch.Tensor | None,
+    queries: torch.Tensor,
+    query_popcounts: torch.Tensor,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+) -> torch.Tensor:
+    """Plain scores of planar columns (twin of the JAX ``_score_columns``):
+    ``cols (Wf, C)`` shared by the batch, or ``(Wf, B, C)`` per query,
+    against ``queries (B, Wf)`` -> f32 ``(B, C)``. ``col_pops=None`` (a
+    popless store) recomputes the column popcounts from ``cols``."""
+    common = popcount_words(cols[0] & queries[:, 0, None])
+    for i in range(1, cols.shape[0]):
+        common += popcount_words(cols[i] & queries[:, i, None])
+    if col_pops is None:
+        col_pops = popcount_words(cols).sum(dim=0, dtype=torch.int32)
+    return similarity_from_counts(
+        common, col_pops, query_popcounts, similarity, alpha, beta
     )
 
 

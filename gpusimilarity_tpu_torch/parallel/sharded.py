@@ -1,9 +1,17 @@
-"""The bitplane store and its exact top-k search on one device (twin of the
-bitplane half of ``gpusimilarity_tpu/parallel/sharded.py``).
+"""The device stores and their exact top-k searches on one device (twin of
+``gpusimilarity_tpu/parallel/sharded.py``).
 
-The library is one shard on one GPU. Planes are stored plain plane-major,
-``int32 [(bitcount + 1), n_padded / 32]`` in global column order, with the
-all-zero sentinel plane last; popcounts are a flat ``int16 [n_padded]``.
+The library is one shard on one GPU. Two stores:
+
+* :class:`BitplaneStore`: planes stored plain plane-major,
+  ``int32 [(bitcount + 1), n_padded / 32]`` in global column order, with
+  the all-zero sentinel plane last; popcounts a flat ``int16 [n_padded]``.
+  Searched by :func:`bitplane_local_topk` (kernel 1).
+* :class:`DenseStore`: the (folded) packed words planar,
+  ``int32 [Wf, n_padded]``, column = row index; popcounts ``int16
+  [n_padded]``, or None for a popless store. Searched by
+  :func:`dense_local_topk` (kernel 2). Every folded library is served
+  dense.
 
 Left out on purpose:
 
@@ -12,10 +20,15 @@ Left out on purpose:
   TPU plane read fills whole (8, 128) register tiles. On a GPU, neighbouring
   threads reading neighbouring words of one plain row are already coalesced,
   so the plain layout is the fast one and needs no second popcount copy;
-* the JAX ``small`` path (``:1189-1198``) and the ``pallas_ok`` gate
-  (``:1076-1084``), which bypass the kernel. Block and word selection stay
-  exact when there are no more blocks than k (they then keep every block),
-  so every search on a CUDA device goes through the kernel.
+* the JAX ``small`` paths (``:702-732``, ``:1189-1198``) and the
+  ``dense_pallas_ok``/``pallas_ok`` gates (``:735``, ``:1076-1084``), which
+  bypass the kernels. Selection stays exact when there are no more blocks
+  than k (it then keeps every block), so every search on a CUDA device goes
+  through a kernel;
+* the dense two-level ``_select_candidate_blocks`` (``:820-856``). It bounds
+  a TPU ``top_k`` and gives up lowest-index ties at ``k_blocks >= 512``;
+  one direct lowest-index top-k over the block maxima keeps the
+  reference's tie rule at every k.
 """
 
 from __future__ import annotations
@@ -30,14 +43,26 @@ from ..ops.bitplane import (
     planes_from_rows,
     wallace_popcount_planes,
 )
+from ..ops import fold as fold_ops
 from ..ops.bitplane_phase1 import BLOCK_WORDS, bitplane_phase1_batched
-from ..ops.scan import TANIMOTO, popcount_rows, similarity_from_counts
+from ..ops.dense_phase1 import dense_phase1
+from ..ops.scan import (
+    TANIMOTO,
+    popcount_rows,
+    popcount_words,
+    score_columns,
+    similarity_from_counts,
+)
 from ..ops.topk import topk_lowest_index
 
 # two-phase top-k granularity: candidate blocks of 2048 columns
 SELECT_BLOCK_COLS = 32 * BLOCK_WORDS
+# dense selection block: 256 columns (the kernel header says why)
+DENSE_BLOCK_COLS = 256
 NEG_INF = float("-inf")
 _POP_CHUNK_ROWS = 1 << 22
+# dense upload slab: rows folded on the host and transposed on the device
+_SLAB_ROWS = 1 << 21
 
 
 @dataclass(frozen=True)
@@ -140,8 +165,17 @@ def bitplane_local_topk(
         common, pops[cols], query_pops, similarity, alpha, beta
     )
     s = torch.where(cols < store.n_valid, s, NEG_INF)
-    kc = min(k, s.shape[1])
-    vals, pos = topk_lowest_index(s, kc, tiebreak=cols)
+    vals, idx = _topk_padded(s, cols, k)
+    return vals, idx, counts.to(torch.int64)
+
+
+def _topk_padded(scores, cols, k):
+    """Lowest-index top-k of candidate ``scores (B, M)`` at columns
+    ``cols (B, M)``, padded with -inf / -1 to k entries."""
+    b = scores.shape[0]
+    dev = scores.device
+    kc = min(k, scores.shape[1])
+    vals, pos = topk_lowest_index(scores, kc, tiebreak=cols)
     idx = torch.gather(cols, 1, pos)
     if kc < k:
         vals = torch.cat(
@@ -151,4 +185,158 @@ def bitplane_local_topk(
             [idx, torch.full((b, k - kc), -1, dtype=torch.int64, device=dev)],
             dim=1,
         )
-    return vals, idx, counts.to(torch.int64)
+    return vals, idx
+
+
+# ------------------------------------------------------------------- dense
+
+
+@dataclass(frozen=True)
+class DenseStore:
+    """(Folded) packed words resident on one device, planar."""
+
+    words: torch.Tensor  # int32 (Wf, n_padded); column j is row j
+    popcounts: torch.Tensor | None  # int16 (n_padded,), None when popless
+    n_valid: int  # real row count; padded tail columns are masked out
+
+    @property
+    def n_padded(self) -> int:
+        return self.words.shape[1]
+
+    @property
+    def word_count(self) -> int:
+        return self.words.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        pops = 0 if self.popcounts is None else self.popcounts.numel() * 2
+        return self.words.numel() * 4 + pops
+
+
+def plan_store_layout(n: int) -> int:
+    """Padded column count of a dense store of ``n`` rows: a multiple of
+    the 256-column selection block (at least one block)."""
+    return -(-max(n, 1) // DENSE_BLOCK_COLS) * DENSE_BLOCK_COLS
+
+
+def dense_popcounts(words: torch.Tensor) -> torch.Tensor:
+    """Column popcounts ``int16 (N,)`` of planar words ``int32 (Wf, N)``."""
+    n = words.shape[1]
+    pops = torch.empty(n, dtype=torch.int16, device=words.device)
+    for lo in range(0, n, _POP_CHUNK_ROWS):
+        hi = min(n, lo + _POP_CHUNK_ROWS)
+        pops[lo:hi] = popcount_words(words[:, lo:hi]).sum(dim=0).to(torch.int16)
+    return pops
+
+
+def build_store(
+    packed_rows,
+    device: torch.device | str = "cpu",
+    fold_factor: int = 1,
+    popless: bool = False,
+) -> DenseStore:
+    """Upload packed rows ``uint32 (N, W)`` — a numpy array, a memory map
+    or a lazy :class:`~gpusimilarity_tpu.utils.synth.VirtualWords` — as a
+    planar dense store.
+
+    Rows stream in slabs of 2Mi: each slab is read once, OR-folded on the
+    host (:func:`~..ops.fold.fold_words`), uploaded and transposed into its
+    columns on the device, so neither the full-width source nor the folded
+    matrix is ever materialised whole. Popcounts are computed on the
+    device from the uploaded words; a popless store keeps none.
+    """
+    n, w = packed_rows.shape
+    if w % fold_factor:
+        raise ValueError(f"fold factor {fold_factor} does not divide {w} words")
+    words = torch.zeros(
+        (w // fold_factor, plan_store_layout(n)), dtype=torch.int32, device=device
+    )
+    for s in range(0, n, _SLAB_ROWS):
+        e = min(n, s + _SLAB_ROWS)
+        rows = np.asarray(packed_rows[s:e], dtype=np.uint32)
+        folded = np.ascontiguousarray(fold_ops.fold_words(rows, fold_factor))
+        words[:, s:e] = torch.from_numpy(folded.view(np.int32)).to(device).T
+    pops = None if popless else dense_popcounts(words)
+    return DenseStore(words=words, popcounts=pops, n_valid=n)
+
+
+def dense_local_topk(
+    store: DenseStore,
+    queries: torch.Tensor,  # int32 (B, Wf), folded like the store
+    query_pops: torch.Tensor,  # int32 (B,)
+    cutoffs: torch.Tensor,  # f32 (B,)
+    k: int,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+    block: int = DENSE_BLOCK_COLS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense scan and exact top-k (twin of ``_local_scan_topk``):
+    ``(values f32 (B, k), indices int64 (B, k), counts int64 (B,))``.
+    Entries past the matches are -inf / -1.
+
+    Phase 1 (the kernel) gives per-block maxima and counts. One direct
+    lowest-index top-k picks the k best blocks, and phase 2 rescores their
+    columns exactly with plain tensor ops. Exact, ties included: a column
+    outside the selected blocks is outranked, in (score, lowest index)
+    order, by each selected block's best column, and there are k of them.
+    """
+    words, pops = store.words, store.popcounts
+    dev = words.device
+    wf = words.shape[0]
+    b = queries.shape[0]
+    alpha_beta = torch.tensor([alpha, beta], dtype=torch.float32, device=dev)
+    block_max, counts = dense_phase1(
+        words, pops, queries, query_pops, cutoffs, alpha_beta, store.n_valid,
+        block, similarity,
+    )
+    n_blocks = block_max.shape[1]
+    k_blocks = min(k, n_blocks)
+    _, selb = topk_lowest_index(block_max, k_blocks)
+    selb = torch.sort(selb, dim=-1).values  # (B, k_blocks), ascending
+    cand = words.view(wf, n_blocks, block)[:, selb].reshape(wf, b, -1)
+    cand_pops = (
+        None if pops is None else pops.view(n_blocks, block)[selb].reshape(b, -1)
+    )
+    s = score_columns(
+        cand, cand_pops, queries, query_pops, similarity, alpha, beta
+    )
+    cols = (selb[:, :, None] * block + torch.arange(block, device=dev)).reshape(b, -1)
+    s = torch.where(cols < store.n_valid, s, NEG_INF)
+    vals, idx = _topk_padded(s, cols, k)
+    return vals, idx, counts
+
+
+def dense_full_scan_topk(
+    store: DenseStore,
+    queries: torch.Tensor,
+    query_pops: torch.Tensor,
+    cutoffs: torch.Tensor,
+    k: int,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+    chunk_cols: int = 1 << 22,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain full scan of a dense store with no selection: the exact
+    lowest-index top-k and the >= cutoff counts, as
+    :func:`dense_local_topk` returns them. The test and smoke oracle."""
+    words, pops = store.words, store.popcounts
+    dev = words.device
+    b = queries.shape[0]
+    best_v = torch.empty((b, 0), dtype=torch.float32, device=dev)
+    best_i = torch.empty((b, 0), dtype=torch.int64, device=dev)
+    counts = torch.zeros(b, dtype=torch.int64, device=dev)
+    for c0 in range(0, store.n_valid, chunk_cols):
+        c1 = min(store.n_valid, c0 + chunk_cols)
+        s = score_columns(
+            words[:, c0:c1], None if pops is None else pops[c0:c1], queries,
+            query_pops, similarity, alpha, beta,
+        )
+        counts += (s >= cutoffs[:, None]).sum(dim=-1)
+        cols = torch.arange(c0, c1, device=dev).expand(b, -1)
+        best_v, best_i = _topk_padded(
+            torch.cat([best_v, s], dim=1), torch.cat([best_i, cols], dim=1),
+            min(k, best_v.shape[1] + c1 - c0),
+        )
+    return (*_topk_padded(best_v, best_i, k), counts)

@@ -6,7 +6,9 @@ converting checkpoint weights.
 ``np.asarray(store.popcounts)``), undoes its per-shard 8-sub-row interleave
 (``gpusimilarity_tpu/parallel/sharded.py:472-481``) and trims its padding to
 the port's layout, so both packages can score one library.
-:func:`store_from_fingerprint_data` builds the same store from the data.
+:func:`dense_store_from_jax` does the same for a JAX dense ``ShardedStore``
+(``np.asarray(store.words)``, ``np.asarray(store.popcounts)`` or None).
+:func:`store_from_fingerprint_data` builds the bitplane store from the data.
 """
 
 from __future__ import annotations
@@ -18,9 +20,43 @@ from gpusimilarity_tpu.utils.fsim import FingerprintData
 
 from ..parallel.sharded import (
     BitplaneStore,
+    DenseStore,
     build_bitplane_store,
     plan_bitplane_layout,
+    plan_store_layout,
 )
+
+
+def dense_store_from_jax(
+    words_np: np.ndarray,
+    popcounts_np: np.ndarray | None,
+    n_valid: int,
+    device: torch.device | str = "cpu",
+) -> DenseStore:
+    """Port layout from a JAX dense store of any shard count.
+
+    ``words_np`` is the global ``uint32 (Wf, n_padded_jax)`` planar array:
+    the JAX store shards columns in global order, so column j is row j and
+    only the padding differs. It is cut (or zero-padded) to the port's
+    padded width; ``popcounts_np`` likewise, or None for a popless store.
+    """
+    wf, width = words_np.shape
+    n_padded = plan_store_layout(n_valid)
+    if width < n_valid:
+        raise ValueError("JAX store is narrower than its row count")
+    words = np.zeros((wf, n_padded), np.uint32)
+    keep = min(width, n_padded)
+    words[:, :keep] = words_np[:, :keep]
+    pops = None
+    if popcounts_np is not None:
+        pops = np.zeros(n_padded, np.int16)
+        pops[:keep] = popcounts_np[:keep]
+        pops = torch.from_numpy(pops).to(device)
+    return DenseStore(
+        words=torch.from_numpy(words.view(np.int32)).to(device),
+        popcounts=pops,
+        n_valid=n_valid,
+    )
 
 
 def bitplane_store_from_jax(

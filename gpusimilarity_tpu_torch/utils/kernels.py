@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -36,7 +37,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every kernel of the package, by source name
+KERNELS = ("bitplane_phase1", "dense_phase1")
+
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LOADED: dict[str, "Build"] = {}
 
 
@@ -87,10 +92,19 @@ def _compile(src: Path, out: Path) -> tuple[float, str]:
     return seconds, log
 
 
+def load_all(names=KERNELS) -> dict[str, Build]:
+    """:func:`load` every kernel, the nvcc runs started together."""
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(load, names)))
+
+
 def load(name: str) -> Build:
     """Build ``csrc/<name>.cu`` if no build of this exact source exists, then
-    load it. Thread-safe; later calls return the loaded library."""
+    load it. Thread-safe, one lock per kernel; later calls return the
+    loaded library."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         build = _LOADED.get(name)
         if build is not None:
             return build

@@ -150,20 +150,34 @@ def test_dbkey_mismatch_returns_empty(library):
      {"fold_factor": 3}],
 )
 def test_unported_modes_raise(kwargs):
+    """The modes the first slice refused (dense, popless, fold 2 and 3)
+    are served now: no ``NotImplementedError``, and a self-query scores
+    1.0 at rank 0 with the numpy oracle's scores."""
     rng = np.random.default_rng(1)
     data = random_fingerprint_data(rng, count=50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FingerprintDB(data, **kwargs)
+    if kwargs.get("popless"):  # dense-only, as in the JAX engine
+        kwargs = {**kwargs, "scan_mode": "dense"}
+    db = FingerprintDB(data, **kwargs)
+    if kwargs.get("fold_factor") == 3:
+        assert db.fold_factor == 4  # rounded up to a divisor of 32 words
+    words = data.packed_words()
+    r = db.search(words[7], k=10, return_indices=True)
+    s = scores_np(words, words[7][None])[0]
+    order = np.lexsort((np.arange(50), -s))[:10]
+    assert r.indices[0] == 7 and r.scores[0] == 1.0
+    np.testing.assert_array_equal(np.float32(r.scores), s[r.indices])
+    if db.fold_factor == 1:
+        assert r.indices == order.tolist()
 
 
 def test_registry_resolves_auto_and_merges(tmp_path):
-    """``auto`` resolves to bitplane unfolded and to (unported) dense when
-    folded; two databases merge with ID joining like the JAX registry."""
+    """``auto`` resolves to bitplane unfolded and to dense when folded; two
+    databases merge with ID joining like the JAX registry."""
     from gpusimilarity_tpu.models import DatabaseRegistry as JaxRegistry
     from gpusimilarity_tpu.utils.fsim import write_fsim
 
-    assert resolve_scan_mode(1) == "bitplane"
-    assert resolve_scan_mode(2) == "dense"
+    assert resolve_scan_mode("auto", 1) == "bitplane"
+    assert resolve_scan_mode("auto", 2) == "dense"
     rng = np.random.default_rng(7)
     data = random_fingerprint_data(rng, count=300, density=0.08)
     write_fsim(tmp_path / "a.fsim", data)
@@ -181,8 +195,11 @@ def test_registry_resolves_auto_and_merges(tmp_path):
     st = reg.stats()
     assert st["databases"]["a"]["count"] == 300 and st["searches"] == 1
     assert isinstance(st["kernel_launches"]["bitplane_phase1"], int)
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        reg.add("c", data, fold_factor=2, scan_mode=resolve_scan_mode(2))
+    assert isinstance(st["kernel_launches"]["dense_phase1"], int)
+    assert st["databases"]["a"]["scan_mode"] == "bitplane"
+    reg.add("c", data, fold_factor=2, scan_mode=resolve_scan_mode("auto", 2))
+    assert reg.stats()["databases"]["c"]["scan_mode"] == "dense"
+    assert reg.stats()["databases"]["c"]["fold_factor"] == 2
 
 
 def test_merge_results_orders_and_joins():

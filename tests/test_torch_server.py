@@ -192,9 +192,14 @@ def test_port_imports_without_jax():
         "import gpusimilarity_tpu_torch.serve.batching\n"
         "import gpusimilarity_tpu_torch.cli.server\n"
         "import gpusimilarity_tpu_torch.models.registry\n"
+        "import gpusimilarity_tpu_torch.models.fingerprint_db\n"
+        "import gpusimilarity_tpu_torch.ops.dense_phase1\n"
+        "import gpusimilarity_tpu_torch.ops.fold\n"
+        "import gpusimilarity_tpu_torch.parallel.sharded\n"
         "import gpusimilarity_tpu_torch.utils.convert\n"
         "import gpusimilarity_tpu_torch.utils.fsim\n"
         "import gpusimilarity_tpu_torch.utils.kernels\n"
+        "import gpusimilarity_tpu_torch.utils.synth\n"
         "import chip_smoke\n"
         "import gpusimilarity_tpu.utils.fingerprints, gpusimilarity_tpu.utils.tfsim\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
@@ -227,6 +232,62 @@ def test_cli_raises_without_cuda(fsim_paths, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_server.main([fsim_paths[0], "--port", "0"])
+
+
+def _start_cli(*args):
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server", *args,
+         "--port", "0", "--cpu_only"],
+        cwd=REPO, env=_env(), stderr=subprocess.PIPE, text=True,
+    )
+    for line in proc.stderr:
+        if "ready on" in line:
+            return proc, int(line.split("ready on ")[1].split()[0].split(":")[1])
+    return proc, None
+
+
+def _stop(proc):
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def test_cli_cpu_only_fold2_serves_like_jax(tmp_path):
+    """``--cpu_only --fold 2`` serves a folded dense library over HTTP; its
+    answers equal the JAX registry's at fold 2 (dense, Pallas phase 1)."""
+    rng = np.random.default_rng(21)
+    bits = rng.random((3000, 1024)) < 0.05
+    data = FingerprintData(
+        fingerprints=np.packbits(bits, axis=1, bitorder="little"),
+        smiles=[f"C{i}".encode() for i in range(3000)],
+        ids=[f"F{i:05d}".encode() for i in range(3000)],
+    )
+    path = str(tmp_path / "folded.fsim")
+    write_fsim(path, data)
+    jreg = JaxRegistry.from_fsim_files([path], fold_factor=2, use_pallas=True)
+    proc, port = _start_cli(path, "--fold", "2")
+    try:
+        assert port, "server exited before printing ready"
+        stats = _get(port, "/stats")
+        assert stats["databases"]["folded"]["fold_factor"] == 2
+        assert stats["databases"]["folded"]["scan_mode"] == "dense"
+        words = data.packed_words()
+        for i, cut in ((11, 0.0), (2999, 0.1)):
+            status, payload = _post(port, "/similarity_search_json", {
+                "fp_hex": words[i].view(np.uint8).tobytes().hex(),
+                "return_count": 15, "similarity_cutoff": cut})
+            want = jreg.search_databases(["folded"], [""], words[i], 15, cut)
+            assert status == 200
+            assert payload["approximate_count"] == want.approximate_count
+            assert [r[0] for r in payload["results"]] == want.ids
+            assert [r[2] for r in payload["results"]] == want.scores
+            assert payload["results"][0][:2] == [f"F{i:05d}", f"C{i}"]
+            assert payload["results"][0][2] == 1.0
+    finally:
+        _stop(proc)
 
 
 def test_cli_cpu_only_serves(fsim_paths):
