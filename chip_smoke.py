@@ -5,17 +5,24 @@
 Run from the repository root on a machine with a CUDA card, nvcc and no
 JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
-(a) build both phase-1 kernels from ``gpusimilarity_tpu_torch/csrc``, one
-    nvcc per source, started together;
+(a) build the three phase-1 kernels from ``gpusimilarity_tpu_torch/csrc``,
+    one nvcc per source, started together;
 (b) hold the bitplane kernel against its plain PyTorch version, bit for
     bit, on a synthetic library of 113,335,291 rows x 1024 bits (the size
     of Enamine REAL in the reference's presentation) made on the card from
-    a seed;
+    a seed, at B 1, 32 and 128 (the batches the probe of (m) times it at);
 (c) the engine's bitplane search (k 20 and 128, batches of 1 and 32) at
     that size against a plain dense full scan over the packed rows;
 (p) where one search's time goes at that size (B 1 and 32, k 128): wall
     time from CUDA events without the profiler, the device's busy time and
     its top ops from torch.profiler, and the idle share;
+(m) the matrix-product kernel (kernel 3) on an unfolded dense store of the
+    same rows: bit for bit against its plain version and against the dense
+    kernel on the same store, int8 and bf16, B 1, 32 and 128, Tanimoto
+    cutoffs 0 and 0.35 mixed in one launch and one Tversky launch; its
+    times, bound and ``torch._int_mm`` yardstick; then the probe
+    (``gpusimilarity_tpu_torch.tools.probe_mxu``) at its default rows, which
+    times kernels 3, 2 and 1 at B 1, 32 and 128;
 (d) the HTTP server (``python -m gpusimilarity_tpu_torch.cli.server``) on a
     1,618,358-row ``.fsim`` (the ChEMBL size of the same slide), answering
     fp_hex self-queries (two of them concurrent, one Tversky), a SMILES
@@ -38,9 +45,10 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
 The main path of each kernel is driven with its launch counter reset just
 before and read just after: the bitplane kernel in (c), (d) and (g), the
-dense kernel in (e) and (f) (the servers' counts come from ``/stats``).
-Launches made in (b), (b2), (p) and (p2) to compare or profile do not
-count. It prints the card's name and power limit, one JSON line describing
+dense kernel in (e) and (f) (the servers' counts come from ``/stats``), the
+matrix-product kernel in the probe of (m), which is the one entry point
+that runs it. Launches made in (b), (b2), (p), (p2) and (m) before the
+probe, to compare or profile, do not count. It prints the card's name and power limit, one JSON line describing
 the kernels, the seconds of each phase, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +74,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gpusimilarity_tpu_torch.tools.probe_mxu import time_ms as median_ms
+from gpusimilarity_tpu_torch.tools.probe_mxu import timed
+
 ROOT = Path(__file__).resolve().parent
 LIB_ROWS = 113_335_291
 SERVER_ROWS = 1_618_358
@@ -77,9 +88,12 @@ KERNELS = {
                         "gpusimilarity_tpu/ops/pallas_bitplane.py:53"),
     "dense_phase1": ("gpusimilarity_tpu_torch/csrc/dense_phase1.cu",
                      "gpusimilarity_tpu/ops/pallas_scan.py:34"),
+    "mxu_phase1": ("gpusimilarity_tpu_torch/csrc/mxu_phase1.cu",
+                   "gpusimilarity_tpu/ops/pallas_mxu.py:40"),
 }
 REFERENCE_FOLD4_MS = 451.72  # 4x V100, 1.02B rows fold 4 (BASELINE.md)
 PLAIN_PREFIX_COLS = 1 << 27  # (b2): B=32 plain comparisons past the first
+PLAIN_PREFIX_MXU = 1 << 25  # (m): plain comparisons other than B=1 and B=32
 
 PHASE_SECONDS: dict[str, float] = {}
 
@@ -135,26 +149,6 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def median_ms(fn, device, reps: int) -> float:
-    """Median wall time of ``fn`` in ms, each run ending in a synchronize
-    (CUDA events around each run on a card)."""
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def pick_queries(rows, pops, n_valid, count, max_bits, seed):
     """``count`` library row indices whose popcount is <= ``max_bits``."""
     rng = np.random.default_rng(seed)
@@ -187,7 +181,7 @@ def phase_build():
         for line in build.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[a] ptxas {name}: {line.strip()}")
-    log(f"[a] both kernels loaded in {time.monotonic() - t0:.2f}s")
+    log(f"[a] {len(builds)} kernels loaded in {time.monotonic() - t0:.2f}s")
     return builds
 
 
@@ -210,9 +204,11 @@ def phase_library(n_rows, device):
     return rows, store
 
 
-def phase_kernel_vs_plain(rows, store, device, reps=(20, 3)):
+def phase_kernel_vs_plain(rows, store, device, reps=20):
     """Kernel against plain version, bit for bit, for both Tanimoto
-    branches, Tversky, plane buckets 64 and 256 and a zero query."""
+    branches, Tversky, plane buckets 64 and 256, B 1, 32 and 128 (the
+    probe's batches) and a zero query. Times at bucket 64: the kernel's
+    median, the plain version's one checked run."""
     from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
     from gpusimilarity_tpu_torch.ops.bitplane_phase1 import (
         bitplane_phase1_batched,
@@ -220,20 +216,24 @@ def phase_kernel_vs_plain(rows, store, device, reps=(20, 3)):
         bitplane_phase1_plain,
     )
     from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.tools.probe_mxu import bitplane_bound
 
     n = store.n_valid
     pops = store.popcounts[:n]
-    idx = pick_queries(rows, pops, n, 31, 64, SEED)
+    idx = pick_queries(rows, pops, n, 127, 64, SEED)
     lib_q = rows[idx].cpu().numpy().view(np.uint32)
-    q32 = np.concatenate([lib_q, np.zeros((1, 32), np.uint32)])  # + zero query
+    zero = np.zeros((1, 32), np.uint32)
+    q128 = np.concatenate([lib_q, zero])  # + a zero query
+    q32 = np.concatenate([lib_q[:31], zero])
     q1 = q32[:1]
-    mixed = np.where(np.arange(32) % 2 == 0, 0.0, 0.35).astype(np.float32)
+    mixed = np.where(np.arange(128) % 2 == 0, 0.0, 0.35).astype(np.float32)
     cases = [
         ("B1 b64 tanimoto cut0", q1, [0.0], "tanimoto", (1, 1), 64),
         ("B1 b64 tanimoto cut0.35", q1, [0.35], "tanimoto", (1, 1), 64),
         ("B1 b64 tversky cut0.35", q1, [0.35], "tversky", (0.7, 0.3), 64),
         ("B32 b64 tanimoto cut0", q32, [0.0] * 32, "tanimoto", (1, 1), 64),
-        ("B32 b64 tanimoto cut0/0.35", q32, mixed, "tanimoto", (1, 1), 64),
+        ("B32 b64 tanimoto cut0/0.35", q32, mixed[:32], "tanimoto", (1, 1), 64),
+        ("B128 b64 tanimoto cut0/0.35", q128, mixed, "tanimoto", (1, 1), 64),
         ("B32 b64 tversky cut0.35", q32, [0.35] * 32, "tversky", (0.7, 0.3), 64),
         ("B1 b256 tanimoto cut0.35", q1, [0.35], "tanimoto", (1, 1), 256),
         ("B32 b256 tanimoto cut0", q32, [0.0] * 32, "tanimoto", (1, 1), 256),
@@ -251,8 +251,7 @@ def phase_kernel_vs_plain(rows, store, device, reps=(20, 3)):
             torch.tensor(ab, dtype=torch.float32, device=device),
         )
         _bm, cnt, colmax = bitplane_phase1_batched(*args, n, sim)
-        pcolmax, pcnt = bitplane_phase1_plain(*args, n, sim)
-        sync(device)
+        (pcolmax, pcnt), p_ms = timed(lambda: bitplane_phase1_plain(*args, n, sim), device)
         same = torch.equal(colmax.view(torch.int32), pcolmax.view(torch.int32))
         finite = torch.isfinite(colmax) & torch.isfinite(pcolmax)
         err = (colmax[finite] - pcolmax[finite]).abs().max().item()
@@ -263,26 +262,19 @@ def phase_kernel_vs_plain(rows, store, device, reps=(20, 3)):
         check(torch.equal(cnt, pcnt), f"{name}: counts differ")
         if sim == "tanimoto" and cut[0] == 0.0:
             check(int(cnt[0]) == n, f"{name}: cutoff-0 count {int(cnt[0])} != {n}")
-        if len(q) == 32:
-            check(colmax[31].max().item() == 0.0, f"{name}: zero query not 0")
+        if len(q) > 1:
+            check(colmax[-1].max().item() == 0.0, f"{name}: zero query not 0")
         log(f"[b] {name}: colmax and counts bit-identical "
             f"(counts[0]={int(cnt[0])}, max abs err {err})")
         if bucket == 64 and sim == "tanimoto" and name.endswith("0.35"):
             b = len(q)
-            k_ms = median_ms(
-                lambda: bitplane_phase1_kernel(*args, n, sim), device, reps[0]
-            )
-            w_ms = median_ms(
-                lambda: bitplane_phase1_batched(*args, n, sim), device, reps[0]
-            )
-            p_ms = median_ms(
-                lambda: bitplane_phase1_plain(*args, n, sim), device, reps[1]
-            )
-            timing[b] = (k_ms, p_ms)
+            k_ms = median_ms(lambda: bitplane_phase1_kernel(*args, n, sim), device, reps)
+            w_ms = median_ms(lambda: bitplane_phase1_batched(*args, n, sim), device, reps)
+            timing[b] = (k_ms, p_ms, bitplane_bound(plane_idx, store.planes.shape[1], b))
             log(f"[b] B={b} bucket 64 at {n:,} rows: kernel median "
                 f"{k_ms:.3f} ms (one launch and its zeroed counts), wrapper "
                 f"median {w_ms:.3f} ms (kernel, allocation and block max), "
-                f"plain median {p_ms:.3f} ms")
+                f"plain {p_ms:.3f} ms (one run)")
     return max_err, timing
 
 
@@ -383,6 +375,128 @@ def phase_profile(rows, store, device, reps=10):
         )
         _profile_search("p", f"B={b} k=128 bucket {bucket}",
                         lambda: bitplane_local_topk(*args), device, reps)
+
+
+def phase_mxu_vs_plain(rows, store, device, reps=10):
+    """(m) Kernel 3 against its plain version and against kernel 2 on one
+    unfolded dense store, bit for bit: int8 and bf16, B 1, 32 and 128,
+    Tanimoto cutoffs 0 and 0.35 mixed in one launch and a Tversky 0.7/0.3
+    launch, a zero query in every batch over 1. Against kernel 2 at full
+    size; against the plain version at full size for B=1 and B=32
+    Tanimoto, else on the first PLAIN_PREFIX_MXU columns. Times at full
+    size: kernel 3 and kernel 2 alone, the plain version at B 1 and 32, and
+    ``torch._int_mm`` on the unpacked bits at B=32 (the product alone)."""
+    from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
+    from gpusimilarity_tpu_torch.ops import mxu_phase1 as ph3
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.tools.probe_mxu import mxu_bound
+
+    n, n_cols = store.n_valid, store.n_padded
+    lib_q = rows[pick_queries(rows, store.popcounts[:n], n, 127, 1024, SEED + 11)]
+    q128 = np.concatenate([lib_q.cpu().numpy().view(np.uint32),
+                           np.zeros((1, 32), np.uint32)])  # + a zero query
+    prefix = min(PLAIN_PREFIX_MXU, n_cols)
+    results = {"max_err": 0.0, "ms": {}, "plain_ms": {}, "dense_ms": {}}
+    for b in (1, 32, 128):
+        q = q128[:1] if b == 1 else q128[128 - b:]
+        qt = torch.from_numpy(q.view(np.int32)).to(device)
+        qbits = ph3.query_bits(qt)
+        qp = torch.from_numpy(popcount_rows_np(q)).to(device)
+        mixed = np.where(np.arange(b) % 2 == 0, 0.0, 0.35).astype(np.float32)
+        for sim, cut, ab in (("tanimoto", mixed, (1.0, 1.0)),
+                             ("tversky", np.full(b, 0.35, np.float32), (0.7, 0.3))):
+            ct = torch.from_numpy(cut).to(device)
+            abt = torch.tensor(ab, dtype=torch.float32, device=device)
+            full_plain = b == 1 or (b == 32 and sim == "tanimoto")
+            cols = n_cols if full_plain else prefix
+            dargs = (store.words, store.popcounts, qt, qp, ct, abt, n, 256, sim)
+            dbm, dcnt = ph2.dense_phase1(*dargs)
+            pargs = (store.words[:, :cols], store.popcounts[:cols], qbits, qp, ct,
+                     abt, 0, 256, n, sim)
+            (pbm, pcnt), p_ms = timed(lambda: ph3.mxu_phase1_plain(*pargs), device)
+            if full_plain:
+                results["plain_ms"].setdefault(b, p_ms)
+            where = "all rows" if full_plain else f"the first {cols:,} columns"
+            for int8 in (True, False):
+                name = f"B{b} {'int8' if int8 else 'bf16'} {sim}"
+                bm, cnt = ph3.mxu_phase1(store.words, store.popcounts, qbits, qp, ct,
+                                         abt, 0, 256, n, sim, int8)
+                sync(device)
+                check(torch.equal(bm.view(torch.int32), dbm.view(torch.int32)),
+                      f"{name}: block maxima differ from the dense kernel's")
+                check(torch.equal(cnt, dcnt), f"{name}: counts differ from the dense kernel's")
+                if full_plain:
+                    kbm, kcnt = bm, cnt
+                else:
+                    kbm, kcnt = ph3.mxu_phase1(*pargs, int8)
+                finite = torch.isfinite(kbm) & torch.isfinite(pbm)
+                err = (kbm[finite] - pbm[finite]).abs().max().item()
+                results["max_err"] = max(results["max_err"], err)
+                check(torch.isneginf(kbm).eq(torch.isneginf(pbm)).all().item(),
+                      f"{name}: -inf pattern differs from the plain version")
+                check(torch.equal(kbm.view(torch.int32), pbm.view(torch.int32)),
+                      f"{name}: block maxima not bit-identical to the plain "
+                      f"version (max abs err {err})")
+                check(torch.equal(kcnt, pcnt), f"{name}: counts differ from the plain version")
+                if sim == "tanimoto":
+                    check(int(cnt[0]) == n, f"{name}: cutoff-0 count {int(cnt[0])} != {n}")
+                if b > 1:
+                    check(bm[-1].max().item() == 0.0, f"{name}: zero query not 0")
+                log(f"[m] {name}: block maxima and counts bit-identical to the dense "
+                    f"kernel's over all rows and to the plain version's over {where} "
+                    f"(counts[0]={int(cnt[0])}, max abs err {err})")
+                if sim == "tanimoto":
+                    args = (store.words, store.popcounts, qbits, qp, ct, abt, 0, 256,
+                            n, sim, int8)
+                    k_ms = median_ms(lambda: ph3.mxu_phase1_kernel(*args), device, reps)
+                    bound = mxu_bound(n_cols, b, 256, int8)
+                    results["ms"][(b, int8)] = (k_ms, bound)
+                    log(f"[m] B={b} {'int8' if int8 else 'bf16'} at {n:,} rows: kernel "
+                        f"median {k_ms:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
+                        f"({bound[0] / k_ms:.3f} of it)")
+            if sim == "tanimoto":
+                d_ms = median_ms(lambda: ph2.dense_phase1_kernel(*dargs), device, reps)
+                results["dense_ms"][b] = d_ms
+                log(f"[m] B={b} dense kernel on the same store: median {d_ms:.3f} ms; "
+                    f"plain mxu version {p_ms:.3f} ms over {where}")
+        if b == 32:
+            results["library_ms"] = _int_mm_ms(store, qbits, device)
+            log(f"[m] B=32 torch._int_mm of the query bits and the unpacked library "
+                f"bits: {results['library_ms']:.3f} ms summed over all rows (the "
+                "product alone, without unpacking or scoring)")
+    return results
+
+
+def _int_mm_ms(store, qbits, device, chunk=1 << 20):
+    """``torch._int_mm`` of int8 query bits ``(B, 1024)`` and the library's
+    unpacked bits, chunk by chunk: the sum of each call's CUDA-event time
+    (the unpacking is not timed). The first chunk's product is checked
+    against a float32 product."""
+    shifts = torch.arange(32, dtype=torch.int32, device=device)
+    total = 0.0
+    for lo in range(0, store.n_padded, chunk):
+        hi = min(store.n_padded, lo + chunk)
+        cols = store.words[:, lo:hi].T  # (C, 32)
+        bits = ((cols[:, :, None] >> shifts) & 1).to(torch.int8).reshape(hi - lo, 1024)
+        common, ms = timed(lambda: torch._int_mm(qbits, bits.t()), device)
+        total += ms
+        if lo == 0:
+            want = (qbits.float() @ bits.t().float()).to(torch.int32)
+            check(torch.equal(common, want), "torch._int_mm disagrees with the float product")
+    return total
+
+
+def phase_probe(device):
+    """(m) The probe's functions at its default rows: kernel 3 (int8 and
+    bf16) and kernel 2 on one dense store, kernel 1 on a bitplane store,
+    B 1, 32 and 128; one JSON line per configuration."""
+    from gpusimilarity_tpu_torch.tools import probe_mxu
+
+    records = []
+    for record in probe_mxu.run(probe_mxu.parse_args([]), device):
+        log("[m] probe " + json.dumps(record))
+        records.append(record)
+    return records
 
 
 def _free_port() -> int:
@@ -594,12 +708,10 @@ def phase_folded_library(device, n_rows, tmp):
     no fold or mode given."""
     from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
     from gpusimilarity_tpu_torch.parallel.mesh import available_device_memory
-    from gpusimilarity_tpu_torch.utils.fsim import (
-        ConstantStringTable,
-        FingerprintData,
-        VirtualFingerprints,
-        save_native,
-    )
+    from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
+    from gpusimilarity_tpu_torch.utils.strings import ConstantStringTable
+    from gpusimilarity_tpu_torch.utils.synth import VirtualFingerprints
+    from gpusimilarity_tpu_torch.utils.tfsim import save_native
 
     path = Path(tmp) / "enamine.tfsim"
     save_native(path, FingerprintData(
@@ -742,6 +854,7 @@ def phase_dense_kernel_vs_plain(store, device, reps=(20, 10)):
     from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.tools.probe_mxu import dense_bound
     from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
 
     n = store.n_valid
@@ -773,12 +886,7 @@ def phase_dense_kernel_vs_plain(store, device, reps=(20, 10)):
             torch.tensor(ab, dtype=torch.float32, device=device), n, 256, sim,
         )
         bm, cnt = ph2.dense_phase1(*args)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        pbm, pcnt = ph2.dense_phase1_plain(*args)
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
+        (pbm, pcnt), plain_ms = timed(lambda: ph2.dense_phase1_plain(*args), device)
         finite = torch.isfinite(bm) & torch.isfinite(pbm)
         err = (bm[finite] - pbm[finite]).abs().max().item()
         max_err = max(max_err, err)
@@ -799,7 +907,8 @@ def phase_dense_kernel_vs_plain(store, device, reps=(20, 10)):
             b = len(q)
             k_ms = median_ms(lambda: ph2.dense_phase1_kernel(*args), device,
                              reps[0] if b == 1 else reps[1])
-            timing[b] = (k_ms, plain_ms)
+            timing[b] = (k_ms, plain_ms,
+                         dense_bound(words.shape[1], store.word_count, b, 256))
             log(f"[b2] B={b} at {n:,} rows: kernel median {k_ms:.3f} ms (one "
                 f"launch and its zeroed counts), plain {plain_ms:.3f} ms (one run)")
     return max_err, timing
@@ -833,12 +942,10 @@ def phase_bitplane_fold(device, n_rows, fold=4):
     from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows, scores_np
-    from gpusimilarity_tpu_torch.utils.fsim import (
-        ConstantStringTable,
-        FingerprintData,
-        VirtualFingerprints,
-    )
+    from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
+    from gpusimilarity_tpu_torch.utils.strings import ConstantStringTable
     from gpusimilarity_tpu_torch.utils.synth import (
+        VirtualFingerprints,
         pick_query_rows,
         virtual_folded_rows,
         virtual_rows_np,
@@ -889,6 +996,8 @@ def main() -> int:
     log(gpu_line())
     from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
     from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
+    from gpusimilarity_tpu_torch.ops import mxu_phase1 as ph3
+    from gpusimilarity_tpu_torch.parallel.sharded import build_store
 
     with phase("a"):
         builds = phase_build()
@@ -906,7 +1015,21 @@ def main() -> int:
         check(engine_launches > 0, "(c) launched no kernel")
     with phase("p"):
         phase_profile(rows, store, device)
-    del rows, store
+    del store
+    torch.cuda.empty_cache()
+
+    with phase("m"):
+        dstore = build_store(rows)
+        before = ph3.launch_count()
+        mxu = phase_mxu_vs_plain(rows, dstore, device)
+        check(ph3.launch_count() > before, "(m) launched no kernel")
+        del rows, dstore
+        torch.cuda.empty_cache()
+        ph3.reset_launch_count()  # the matrix-product main path: the probe
+        probe_records = phase_probe(device)
+        probe_launches = ph3.launch_count()
+        check(probe_launches > 0, "(m) the probe launched no kernel")
+        check(len(probe_records) == 12, f"(m) {len(probe_records)} probe records")
     torch.cuda.empty_cache()
 
     with phase("d"):
@@ -946,7 +1069,8 @@ def main() -> int:
 
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}; dense engine "
-        f"{dense_engine_launches}, server {folded_server_launches}")
+        f"{dense_engine_launches}, server {folded_server_launches}; "
+        f"matrix-product probe {probe_launches}")
     log(f"engine latency (ms) unfolded 113,335,291 rows: "
         + ", ".join(f"B={b} k={k}: {ms:.3f}" for (b, k), ms in latency.items()))
     log(f"engine latency (ms) fold 4 1,020,017,472 rows: "
@@ -955,21 +1079,37 @@ def main() -> int:
         f"({name}) {sec:.1f}" for name, sec in PHASE_SECONDS.items()))
     log(f"total {time.monotonic() - t_start:.1f}s")
 
-    def entry(name, launches, err, times):
+    def entry(name, launches, err, times, library_ms=None):
         source, replaces = KERNELS[name]
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": times[32][0], "plain_ms": times[32][1],
-            "build_s": builds[name].seconds, "ms_b1": times[1][0],
-            "plain_ms_b1": times[1][1],
+            "bound_ms": times[32][2][0], "bound_by": times[32][2][1],
+            "library_ms": library_ms, "build_s": builds[name].seconds,
+            "ms_b1": times[1][0], "plain_ms_b1": times[1][1],
+            "bound_ms_b1": times[1][2][0],
         }
 
+    mxu_times = {b: (mxu["ms"][(b, True)][0], mxu["plain_ms"][b],
+                     mxu["ms"][(b, True)][1]) for b in (1, 32)}
+    k3 = entry("mxu_phase1", probe_launches, mxu["max_err"], mxu_times,
+               mxu["library_ms"])
+    k3.update({
+        "ms_b128": mxu["ms"][(128, True)][0],
+        "bound_ms_b128": mxu["ms"][(128, True)][1][0],
+        "ms_bf16": {b: mxu["ms"][(b, False)][0] for b in (1, 32, 128)},
+        "dense_ms_same_store": mxu["dense_ms"],
+    })
+    k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches,
+               max_err, timing)
+    k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
+               "bound_ms_b128": timing[128][2][0]})
     log(json.dumps({"kernels": [
-        entry("bitplane_phase1", engine_launches + server_launches + fold_launches,
-              max_err, timing),
+        k1,
         entry("dense_phase1", dense_engine_launches + folded_server_launches,
               max_err2, timing2),
+        k3,
     ]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ import argparse
 import logging
 import sys
 
+SERVING_KERNELS = ("bitplane_phase1", "dense_phase1")
+
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
@@ -71,7 +73,9 @@ def main(argv=None):
     if device.type == "cuda":
         from ..utils import kernels
 
-        for name, build in kernels.load_all().items():
+        # the kernels the searches launch; the probe's matrix-product
+        # kernel serves no request
+        for name, build in kernels.load_all(SERVING_KERNELS).items():
             logging.getLogger("tpusimilarity").info(
                 "%s kernel ready (%s, built in %.1fs)", name, build.path.name,
                 build.seconds,

@@ -17,20 +17,18 @@ sources and the multi-host feed.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from gpusimilarity_tpu.utils import native, synth
-from gpusimilarity_tpu.utils.fsim import FingerprintData
-
 from ..ops import fold as fold_ops
 from ..ops.bitplane import query_plane_indices
 from ..ops.scan import TANIMOTO, popcount_rows_np, scores_np
 from ..parallel import sharded
-from ..utils import synth as device_synth
+from ..parallel.mesh import resolve_device
+from ..utils import native, synth
+from ..utils.fsim import FingerprintData
 from .results import SearchResult
 
 
@@ -48,36 +46,22 @@ def rescore_rows(full_words, idx, query, similarity=TANIMOTO, alpha=1.0,
     ``full_words`` — an array, a memory map or a lazy ``VirtualWords`` —
     against one packed query: the fold path's host rescore.
 
-    With the native library built it runs ``tsn_rescore`` /
-    ``tsn_synth_rescore`` (the functions behind ``native.rescore`` and
-    ``native.synth_rescore``, called directly because those wrappers import
-    the JAX package); otherwise the candidates' rows (recomputed from the
-    mixer for a virtual library) go through :func:`~..ops.scan.scores_np`.
-    A virtual library is never materialised beyond its candidates.
+    With the native library built it runs :func:`~..utils.native.rescore`
+    or :func:`~..utils.native.synth_rescore`; otherwise the candidates' rows
+    (recomputed from the mixer for a virtual library) go through
+    :func:`~..ops.scan.scores_np`. A virtual library is never materialised
+    beyond its candidates.
     """
     idx = np.ascontiguousarray(idx, dtype=np.int64)
     query = np.ascontiguousarray(query, dtype=np.uint32)
     virtual = isinstance(full_words, synth.VirtualWords)
-    lib = native._load()
-    if lib is not None:
-        out = np.empty(len(idx), dtype=np.float32)
-        qpop = int(popcount_rows_np(query[None, :])[0])
-        tv = 1 if similarity != TANIMOTO else 0
-        ptr = ctypes.c_void_p
+    if native.available():
+        tversky = similarity != TANIMOTO
         if virtual:
-            lib.tsn_synth_rescore(
-                ptr(idx.ctypes.data), len(idx), ptr(query.ctypes.data),
-                len(query), full_words.seed, qpop, alpha, beta, tv,
-                ptr(out.ctypes.data),
+            return native.synth_rescore(
+                idx, query, full_words.seed, alpha, beta, tversky
             )
-        else:
-            words = np.ascontiguousarray(full_words, dtype=np.uint32)
-            lib.tsn_rescore(
-                ptr(words.ctypes.data), words.shape[1], ptr(idx.ctypes.data),
-                len(idx), ptr(query.ctypes.data), qpop, alpha, beta, tv,
-                ptr(out.ctypes.data),
-            )
-        return out
+        return native.rescore(full_words, idx, query, alpha, beta, tversky)
     if virtual:
         rows = synth.virtual_rows_np(idx, full_words.shape[1], full_words.seed)
     else:
@@ -91,7 +75,7 @@ class FingerprintDB:
     def __init__(
         self,
         data: FingerprintData,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         fold_factor: int = 1,
         scan_mode: str = "bitplane",
         popless: bool = False,
@@ -103,7 +87,8 @@ class FingerprintDB:
         the scan recomputes column popcounts from the words it reads.
         ``fold_factor`` is rounded up to a divisor of the word count; a
         folded library keeps ``data``'s full-width rows on the host for the
-        exact rescore."""
+        exact rescore. ``device`` defaults to the card and raises without
+        one; ``device="cpu"`` runs the plain versions on the host."""
         data.validate()
         if scan_mode not in ("dense", "bitplane"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
@@ -112,7 +97,7 @@ class FingerprintDB:
                 "popless stores are dense-only: the bitplane score needs "
                 "stored popcounts"
             )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.scan_mode = scan_mode
         self.popless = popless
         self.dbkey = data.dbkey
@@ -137,7 +122,7 @@ class FingerprintDB:
         full, fold, dev = self._full_words, self.fold_factor, self.device
         virtual = isinstance(full, synth.VirtualWords)
         if self.scan_mode == "dense" and virtual:
-            self._store = device_synth.build_virtual_dense_store(
+            self._store = synth.build_virtual_dense_store(
                 self._count, fold, self.word_count, full.seed,
                 popless=self.popless, device=dev,
             )
@@ -147,7 +132,7 @@ class FingerprintDB:
             )
         elif virtual:
             self._store = sharded.build_bitplane_store(
-                device_synth.virtual_folded_rows(
+                synth.virtual_folded_rows(
                     self._count, fold, self.word_count, full.seed, dev
                 )
             )

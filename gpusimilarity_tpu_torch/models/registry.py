@@ -18,10 +18,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from gpusimilarity_tpu.utils.fsim import FingerprintData
-
 from ..ops.scan import TANIMOTO
-from ..parallel.mesh import auto_fold_factor
+from ..parallel.mesh import auto_fold_factor, resolve_device
+from ..utils.fsim import FingerprintData
+from ..utils.tfsim import load_any
 from .fingerprint_db import FingerprintDB
 from .results import SearchResult
 
@@ -55,8 +55,10 @@ def resolve_scan_mode(
 class DatabaseRegistry:
     """A set of named FingerprintDBs sharing one device and fold factor."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str | None = None):
+        """``device`` defaults to the card and raises without one;
+        ``device="cpu"`` runs the plain versions on the host."""
+        self.device = resolve_device(device)
         self._dbs: dict[str, FingerprintDB] = {}
         self.search_count = 0
         self.total_search_seconds = 0.0
@@ -66,7 +68,7 @@ class DatabaseRegistry:
     def from_fsim_files(
         cls,
         paths: Sequence[str],
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         device_bitcount: int = 0,
         fold_factor: int | None = None,
         scan_mode: str = "auto",
@@ -80,8 +82,6 @@ class DatabaseRegistry:
         (:meth:`_global_fold`). ``scan_mode`` (``auto``, ``dense`` or
         ``bitplane``) is resolved after it, from the effective fold
         (:func:`resolve_scan_mode`)."""
-        from gpusimilarity_tpu.utils.tfsim import load_any
-
         reg = cls(device=device)
         datas: list[tuple[str, FingerprintData]] = []
         for p in paths:

@@ -15,6 +15,8 @@ import math
 
 import numpy as np
 
+from ..utils import native
+
 
 def round_fold_factor(word_count: int, fold_factor: int) -> int:
     """Round ``fold_factor`` up to the next divisor of ``word_count``
@@ -36,8 +38,6 @@ def fold_words(words, fold_factor: int):
     if w % fold_factor != 0:
         raise ValueError(f"fold factor {fold_factor} does not divide {w} words")
     if isinstance(words, np.ndarray) and words.ndim == 2 and len(words) >= 1024:
-        from gpusimilarity_tpu.utils import native
-
         if native.available():
             return native.fold_rows(words, fold_factor)
     grouped = words.reshape(*words.shape[:-1], fold_factor, w // fold_factor)

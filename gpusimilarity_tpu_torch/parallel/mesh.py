@@ -25,6 +25,12 @@ def select_device(cpu_only: bool = False) -> torch.device:
     return torch.device("cuda", 0)
 
 
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """An entry point's ``device`` argument: the card (:func:`select_device`,
+    which raises without one) when None, else the device asked for."""
+    return select_device() if device is None else torch.device(device)
+
+
 def available_device_memory(device: torch.device) -> Optional[int]:
     """Free device memory in bytes, or None on the CPU (no meaningful cap)."""
     if device.type != "cuda":

@@ -54,6 +54,7 @@ from ..ops.scan import (
     similarity_from_counts,
 )
 from ..ops.topk import topk_lowest_index
+from .mesh import resolve_device
 
 # two-phase top-k granularity: candidate blocks of 2048 columns
 SELECT_BLOCK_COLS = 32 * BLOCK_WORDS
@@ -90,15 +91,15 @@ def plan_bitplane_layout(n: int) -> int:
 
 
 def build_bitplane_store(
-    packed_rows, device: torch.device | str = "cpu"
+    packed_rows, device: torch.device | str | None = None
 ) -> BitplaneStore:
     """Build a store from packed rows: numpy ``uint32 (N, W)`` (uploaded
-    to ``device``) or an int32 tensor already on the device. The
-    transpose runs on the device."""
+    to ``device``, the card unless told otherwise) or an int32 tensor
+    already on its device. The transpose runs on the device."""
     if isinstance(packed_rows, np.ndarray):
         rows = torch.from_numpy(
             np.ascontiguousarray(packed_rows, dtype=np.uint32).view(np.int32)
-        ).to(device)
+        ).to(resolve_device(device))
     else:
         rows = packed_rows
         if rows.dtype != torch.int32 or rows.dim() != 2:
@@ -231,31 +232,44 @@ def dense_popcounts(words: torch.Tensor) -> torch.Tensor:
 
 def build_store(
     packed_rows,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
     fold_factor: int = 1,
     popless: bool = False,
 ) -> DenseStore:
-    """Upload packed rows ``uint32 (N, W)`` — a numpy array, a memory map
-    or a lazy :class:`~gpusimilarity_tpu.utils.synth.VirtualWords` — as a
-    planar dense store.
+    """Build a planar dense store from packed rows ``(N, W)``: numpy
+    ``uint32`` — an array, a memory map or a lazy
+    :class:`~..utils.synth.VirtualWords` — uploaded to ``device`` (the card
+    unless told otherwise), or an int32 tensor already on its device.
 
-    Rows stream in slabs of 2Mi: each slab is read once, OR-folded on the
-    host (:func:`~..ops.fold.fold_words`), uploaded and transposed into its
-    columns on the device, so neither the full-width source nor the folded
-    matrix is ever materialised whole. Popcounts are computed on the
-    device from the uploaded words; a popless store keeps none.
+    Rows stream in slabs of 2Mi: each slab is read once, OR-folded
+    (:func:`~..ops.fold.fold_words`, on the host for numpy rows), uploaded
+    and transposed into its columns on the device, so neither the
+    full-width source nor the folded matrix is ever materialised whole.
+    Popcounts are computed on the device from the uploaded words; a
+    popless store keeps none.
     """
     n, w = packed_rows.shape
     if w % fold_factor:
         raise ValueError(f"fold factor {fold_factor} does not divide {w} words")
+    on_device = isinstance(packed_rows, torch.Tensor)
+    if on_device:
+        if packed_rows.dtype != torch.int32 or packed_rows.dim() != 2:
+            raise ValueError("packed rows must be int32 (N, W)")
+        device = packed_rows.device
+    else:
+        device = resolve_device(device)
     words = torch.zeros(
         (w // fold_factor, plan_store_layout(n)), dtype=torch.int32, device=device
     )
     for s in range(0, n, _SLAB_ROWS):
         e = min(n, s + _SLAB_ROWS)
-        rows = np.asarray(packed_rows[s:e], dtype=np.uint32)
-        folded = np.ascontiguousarray(fold_ops.fold_words(rows, fold_factor))
-        words[:, s:e] = torch.from_numpy(folded.view(np.int32)).to(device).T
+        if on_device:
+            folded = fold_ops.fold_words(packed_rows[s:e], fold_factor)
+        else:
+            rows = np.asarray(packed_rows[s:e], dtype=np.uint32)
+            folded = np.ascontiguousarray(fold_ops.fold_words(rows, fold_factor))
+            folded = torch.from_numpy(folded.view(np.int32)).to(device)
+        words[:, s:e] = folded.T
     pops = None if popless else dense_popcounts(words)
     return DenseStore(words=words, popcounts=pops, n_valid=n)
 

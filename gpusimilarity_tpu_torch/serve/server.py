@@ -26,7 +26,9 @@ from email.policy import HTTP as HTTP_POLICY
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
-from gpusimilarity_tpu.utils.fingerprints import (
+from ..models.registry import DatabaseRegistry
+from ..ops.scan import TANIMOTO, TVERSKY
+from ..utils.fingerprints import (
     BITCOUNT,
     FingerprintError,
     compatible_generators,
@@ -34,9 +36,6 @@ from gpusimilarity_tpu.utils.fingerprints import (
     generator_tag,
     smiles_to_query_words,
 )
-
-from ..models.registry import DatabaseRegistry
-from ..ops.scan import TANIMOTO, TVERSKY
 from .batching import BatchingSearcher
 
 # request-size guard: the largest top-k a client may ask for

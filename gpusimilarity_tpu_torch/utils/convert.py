@@ -1,6 +1,9 @@
 """Carry a library over from the JAX package: this system's counterpart of
-converting checkpoint weights.
+converting checkpoint weights. Nothing here imports the JAX package: its
+objects are read by their fields and its arrays arrive as numpy.
 
+:func:`fingerprint_data_from_jax` rebuilds a JAX ``FingerprintData`` (a
+synthetic library's included) as the port's own.
 :func:`bitplane_store_from_jax` takes the host copies of a JAX
 ``BitplaneStore``'s arrays (``np.asarray(store.planes)``,
 ``np.asarray(store.popcounts)``), undoes its per-shard 8-sub-row interleave
@@ -16,8 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpusimilarity_tpu.utils.fsim import FingerprintData
-
+from ..parallel.mesh import resolve_device
 from ..parallel.sharded import (
     BitplaneStore,
     DenseStore,
@@ -25,13 +27,30 @@ from ..parallel.sharded import (
     plan_bitplane_layout,
     plan_store_layout,
 )
+from .fsim import FingerprintData
+from .synth import VirtualFingerprints
+
+
+def fingerprint_data_from_jax(data) -> FingerprintData:
+    """The port's :class:`~.fsim.FingerprintData` with the fields of a JAX
+    ``FingerprintData``: the same arrays and string tables, and a virtual
+    library (``fingerprints.seed``) as the port's
+    :class:`~.synth.VirtualFingerprints` of the same rows."""
+    fps = data.fingerprints
+    seed = getattr(fps, "seed", None)
+    if seed is not None:
+        fps = VirtualFingerprints(fps.shape[0], data.bitcount, seed)
+    return FingerprintData(
+        dbkey=data.dbkey, bitcount=data.bitcount, fingerprints=fps,
+        smiles=data.smiles, ids=data.ids, generator=data.generator,
+    )
 
 
 def dense_store_from_jax(
     words_np: np.ndarray,
     popcounts_np: np.ndarray | None,
     n_valid: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> DenseStore:
     """Port layout from a JAX dense store of any shard count.
 
@@ -40,6 +59,7 @@ def dense_store_from_jax(
     only the padding differs. It is cut (or zero-padded) to the port's
     padded width; ``popcounts_np`` likewise, or None for a popless store.
     """
+    device = resolve_device(device)
     wf, width = words_np.shape
     n_padded = plan_store_layout(n_valid)
     if width < n_valid:
@@ -64,7 +84,7 @@ def bitplane_store_from_jax(
     popcounts_np: np.ndarray,
     n_valid: int,
     n_shards: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> BitplaneStore:
     """Port layout from a JAX bitplane store of any shard count.
 
@@ -72,6 +92,7 @@ def bitplane_store_from_jax(
     ``8p + r``, shard block s holds plane-p words
     ``[s*Ms + r*M8s, s*Ms + (r+1)*M8s)`` with ``Ms = 8*M8s``.
     """
+    device = resolve_device(device)
     rows, width = planes_np.shape
     if rows % 8 or width % n_shards:
         raise ValueError(f"not a JAX bitplane layout: {planes_np.shape}")
@@ -97,7 +118,7 @@ def bitplane_store_from_jax(
 
 
 def store_from_fingerprint_data(
-    data: FingerprintData, device: torch.device | str = "cpu"
+    data: FingerprintData, device: torch.device | str | None = None
 ) -> BitplaneStore:
     """The port's own bitplane store of a library."""
     data.validate()

@@ -1,17 +1,21 @@
-"""The device half of the virtual library (twin of the device code in
+"""Deterministic virtual fingerprint libraries (twin of
 ``gpusimilarity_tpu/utils/synth.py``).
 
 A virtual library row is a pure function of its index through the
 ``lowbias32`` counter mixer, so the card can generate a 10^9-row library in
-place while the host recomputes only the few rows a folded search rescores
-(``gpusimilarity_tpu.utils.synth.virtual_rows_np`` and ``VirtualWords``,
-which the port imports: they are jax-free).
+place while the host recomputes only the few rows a folded search rescores.
+Rows come in 256-row clusters sharing a sparse core pattern, each row
+keeping ~75% of the core's bits plus its own: ~40 of 1024 bits set, like a
+real Morgan fingerprint, with graded neighbours for every query.
 
-PyTorch has no unsigned 32-bit arithmetic, so the mixer runs on int32
-views: addition, multiplication and left shifts wrap modulo 2**32 the same
-way on either view, ``^ & |`` are bitwise, and the logical right shift is
-:func:`~..ops.bitplane.shr`. ``tests/test_torch_synth.py`` pins the result
-against ``virtual_rows_np``, including rows past 2**31.
+The host half (:func:`virtual_rows_np`, :class:`VirtualWords`,
+:class:`VirtualFingerprints`, what a synthetic ``.tfsim`` holds) is the
+port's copy of the JAX package's numpy code, in uint32. The device half
+runs the same mixer in PyTorch, which has no unsigned 32-bit arithmetic, on
+int32 views: addition, multiplication and left shifts wrap modulo 2**32 the
+same way on either view, ``^ & |`` are bitwise, and the logical right shift
+is :func:`~..ops.bitplane.shr`. ``tests/test_torch_synth.py`` pins the two
+halves to each other and to the JAX package's, including rows past 2**31.
 """
 
 from __future__ import annotations
@@ -19,21 +23,169 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gpusimilarity_tpu.utils.synth import (
-    CLUSTER_ROWS,
-    NUM_DRAWS,
-    _GOLD,
-    _seed_consts,
-    virtual_rows_np,
-)
-
 from ..ops import fold as fold_ops
 from ..ops.bitplane import shr, wrap_int32
 from ..ops.scan import popcount_rows, popcount_rows_np
+from ..parallel.mesh import resolve_device
 from ..parallel.sharded import DenseStore, plan_store_layout
+
+#: rows per cluster (shared sparse core pattern)
+CLUSTER_ROWS = 256
+#: mixer draws per 32-bit word: one (a, b) pair each for cluster and row
+NUM_DRAWS = 2
+
+_GOLD = 0x9E3779B9  # 2^32 / golden ratio: decorrelates sequential counters
 
 # rows generated per step on the device (a multiple of CLUSTER_ROWS)
 _GEN_ROWS = 1 << 20
+
+
+def _seed_consts(seed: int):
+    s_row = np.uint32((seed * _GOLD + 0x85EBCA6B) & 0xFFFFFFFF)
+    s_clu = np.uint32((seed * _GOLD + 0xC2B2AE35) & 0xFFFFFFFF)
+    return s_row, s_clu
+
+
+# ------------------------------------------------------------- host (numpy)
+
+
+def _mix32_np(h):
+    """lowbias32 on uint32 arrays (constants dtype-pinned so numpy does not
+    upcast)."""
+    c1, c2 = np.uint32(0x7FEB352D), np.uint32(0x846CA68B)
+    h = h ^ (h >> 16)
+    h = h * c1
+    h = h ^ (h >> 15)
+    h = h * c2
+    return h ^ (h >> 16)
+
+
+def _ror_np(x, r: int):
+    return (x >> np.uint32(r)) | (x << np.uint32(32 - r))
+
+
+def _combine_words(ca, cb, ra, rb):
+    """Sparse words from two cluster and two row draws::
+
+        core  = ca & ror(ca,7) & ror(ca,15) & cb & ror(cb,11)   (~3.1%)
+        keep  = ra | ror(ra,13)                                  (75%)
+        indiv = rb & ror(rb,3) & ror(rb,6) & ror(rb,12)
+                   & ror(rb,17) & ror(rb,24)                     (~1.6%)
+        word  = (core & keep) | indiv                            (~3.9%)
+    """
+    core = ca & _ror_np(ca, 7) & _ror_np(ca, 15) & cb & _ror_np(cb, 11)
+    keep = ra | _ror_np(ra, 13)
+    indiv = (
+        rb & _ror_np(rb, 3) & _ror_np(rb, 6) & _ror_np(rb, 12)
+        & _ror_np(rb, 17) & _ror_np(rb, 24)
+    )
+    return (core & keep) | indiv
+
+
+def virtual_rows_np(idx, word_count: int = 32, seed: int = 0) -> np.ndarray:
+    """Full-width packed words ``uint32 (K, word_count)`` of rows ``idx``.
+
+    Per word ``w`` of row ``i`` (cluster ``c = i >> 8``), draws
+    ``a = mix32(h + 2w * GOLD)``, ``b = mix32(h + (2w+1) * GOLD)`` over the
+    per-row base ``mix32(i ^ s_row)`` and the per-cluster base
+    ``mix32(c ^ s_clu)``, combined by :func:`_combine_words`. The native
+    twin is ``tsn_synth_rescore`` (``native/tpusim_native.cpp``).
+    """
+    idx = np.asarray(idx)
+    if idx.ndim != 1:
+        raise ValueError("idx must be 1-D")
+    idx = idx.astype(np.uint32)
+    s_row, s_clu = _seed_consts(seed)
+    hr = _mix32_np(idx ^ s_row)[:, None]
+    hc = _mix32_np((idx >> 8) ^ s_clu)[:, None]
+    k = idx.shape[0]
+    wd = np.arange(word_count * NUM_DRAWS, dtype=np.uint32) * np.uint32(_GOLD)
+    dc = _mix32_np(hc + wd[None, :]).reshape(k, word_count, NUM_DRAWS)
+    dr = _mix32_np(hr + wd[None, :]).reshape(k, word_count, NUM_DRAWS)
+    return _combine_words(dc[..., 0], dc[..., 1], dr[..., 0], dr[..., 1])
+
+
+class VirtualWords:
+    """Lazy ``uint32 (count, W)`` face of a virtual library: the engine's
+    host-side full-width rows (the folded search's rescore source), which
+    materialise on demand from their indices, so a 10^9-row library needs
+    no storage. Supports ``shape``/``nbytes``/``dtype`` and ``__getitem__``
+    with an int, a slice or a 1-D index array."""
+
+    __slots__ = ("shape", "seed")
+    dtype = np.dtype(np.uint32)
+
+    def __init__(self, count: int, word_count: int = 32, seed: int = 0):
+        self.shape = (int(count), int(word_count))
+        self.seed = int(seed)
+
+    @property
+    def nbytes(self) -> int:
+        return self.shape[0] * self.shape[1] * 4
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, key):
+        n, w = self.shape
+        if isinstance(key, (int, np.integer)):
+            i = int(key)
+            if i < 0:
+                i += n
+            if not 0 <= i < n:
+                raise IndexError(f"row {key} out of range [0, {n})")
+            return virtual_rows_np(np.array([i]), word_count=w, seed=self.seed)[0]
+        if isinstance(key, slice):
+            idx = np.arange(*key.indices(n), dtype=np.int64)
+        else:
+            idx = np.asarray(key)
+            if idx.ndim != 1:
+                raise TypeError(
+                    "VirtualWords supports int / slice / 1-D index arrays"
+                )
+            if idx.size and (idx.min() < -n or idx.max() >= n):
+                raise IndexError("row indices out of range")
+            idx = np.where(idx < 0, idx + n, idx).astype(np.int64)
+        return virtual_rows_np(idx, word_count=w, seed=self.seed)
+
+
+class VirtualFingerprints:
+    """Lazy ``uint8 (count, bitcount // 8)`` face of a virtual library —
+    what a synthetic-kind ``.tfsim`` exposes as ``FingerprintData.
+    fingerprints``, with the ``shape``/``nbytes`` the loaders and the
+    registry's fold arithmetic read; bulk access goes through
+    :attr:`words`."""
+
+    __slots__ = ("words",)
+    dtype = np.dtype(np.uint8)
+
+    def __init__(self, count: int, bitcount: int = 1024, seed: int = 0):
+        if bitcount % 32:
+            raise ValueError(f"bitcount {bitcount} not divisible by 32")
+        self.words = VirtualWords(count, bitcount // 32, seed)
+
+    @property
+    def shape(self) -> tuple:
+        n, w = self.words.shape
+        return (n, w * 4)
+
+    @property
+    def seed(self) -> int:
+        return self.words.seed
+
+    @property
+    def nbytes(self) -> int:
+        return self.words.nbytes
+
+    def __len__(self) -> int:
+        return self.words.shape[0]
+
+    def __getitem__(self, key):
+        rows = self.words[key]
+        return np.ascontiguousarray(rows).view(np.uint8)
+
+
+# ---------------------------------------------------------- device (torch)
 
 
 def _i32(v: int) -> int:
@@ -69,7 +221,7 @@ def _draws(base: torch.Tensor, word_count: int) -> tuple[torch.Tensor, torch.Ten
 
 def virtual_rows(
     row0: int, n: int, word_count: int = 32, seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """Full-width rows ``[row0, row0 + n)`` as int32 ``(n, word_count)`` on
     ``device``: the same bits as ``virtual_rows_np(arange(row0, row0 + n))``
@@ -81,6 +233,7 @@ def virtual_rows(
     """
     if not 0 <= row0 <= row0 + n <= 1 << 32:
         raise ValueError("rows must lie in [0, 2**32)")
+    device = resolve_device(device)
     s_row, s_clu = (_i32(int(v)) for v in _seed_consts(seed))
     idx = wrap_int32(torch.arange(row0, row0 + n, device=device))
     c0 = row0 // CLUSTER_ROWS
@@ -100,13 +253,14 @@ def virtual_rows(
 
 def virtual_folded_rows(
     n_rows: int, fold_factor: int, word_count: int = 32, seed: int = 0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """The first ``n_rows`` virtual rows OR-folded, int32 ``(n_rows,
     word_count // fold)`` on ``device``, generated in steps of 1Mi rows so
     the full width never exists whole. ``build_bitplane_store`` takes it
     for a folded virtual bitplane library."""
     wf = word_count // fold_factor
+    device = resolve_device(device)
     out = torch.empty((n_rows, wf), dtype=torch.int32, device=device)
     for lo in range(0, n_rows, _GEN_ROWS):
         hi = min(n_rows, lo + _GEN_ROWS)
@@ -122,7 +276,7 @@ def build_virtual_dense_store(
     word_count: int = 32,
     seed: int = 0,
     popless: bool = True,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> DenseStore:
     """Generate the folded virtual library directly on the device as a
     dense store (twin of ``build_virtual_dense_store``): each step makes
@@ -135,6 +289,7 @@ def build_virtual_dense_store(
         raise ValueError("fold factor must divide the word count")
     wf = word_count // fold_factor
     n_padded = plan_store_layout(n_rows)
+    device = resolve_device(device)
     words = torch.zeros((wf, n_padded), dtype=torch.int32, device=device)
     pops = None if popless else torch.zeros(n_padded, dtype=torch.int16, device=device)
     for lo in range(0, n_rows, _GEN_ROWS):
@@ -170,11 +325,3 @@ def pick_query_rows(
         picked.extend(int(c) for c, p in zip(cand, fp) if p <= max_planes)
     return np.array(picked[:count], dtype=np.int64)
 
-
-__all__ = [
-    "build_virtual_dense_store",
-    "pick_query_rows",
-    "virtual_folded_rows",
-    "virtual_rows",
-    "virtual_rows_np",
-]

@@ -88,9 +88,9 @@ def test_store_from_jax_equals_own_store(rng, n_devices):
     data = random_fingerprint_data(rng, count=10000, density=0.05)
     js = jax_store(data.packed_words(), mesh=make_mesh(jax.devices()[:n_devices]))
     got = bitplane_store_from_jax(
-        np.asarray(js.planes), np.asarray(js.popcounts), data.count, n_devices
+        np.asarray(js.planes), np.asarray(js.popcounts), data.count, n_devices, "cpu"
     )
-    own = store_from_fingerprint_data(data)
+    own = store_from_fingerprint_data(data, "cpu")
     assert torch.equal(got.planes, own.planes)
     assert torch.equal(got.popcounts, own.popcounts)
     assert (got.n_valid, got.bitcount) == (own.n_valid, own.bitcount) == (10000, 1024)

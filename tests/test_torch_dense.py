@@ -161,9 +161,9 @@ def test_dense_store_from_jax_round_trip(jax_store, popless):
     words, jstore = jax_store
     st = dense_store_from_jax(
         np.asarray(jstore.words),
-        None if popless else np.asarray(jstore.popcounts), len(words),
+        None if popless else np.asarray(jstore.popcounts), len(words), "cpu",
     )
-    own = sharded.build_store(words, popless=popless)
+    own = sharded.build_store(words, "cpu", popless=popless)
     assert st.n_padded == own.n_padded == sharded.plan_store_layout(20000)
     assert torch.equal(st.words, own.words)
     if popless:
@@ -174,6 +174,25 @@ def test_dense_store_from_jax_round_trip(jax_store, popless):
         st.words[:, :20000].T.contiguous(),
         torch.from_numpy(words.view(np.int32)),
     )
+
+
+@pytest.mark.parametrize("fold,popless", [(1, False), (4, False), (1, True)],
+                         ids=["fold1", "fold4", "popless"])
+def test_build_store_from_rows_on_their_device(jax_store, fold, popless):
+    """Packed rows already in an int32 tensor build the store the numpy
+    rows build, on the tensor's device; other dtypes raise."""
+    words = jax_store[0]
+    rows = torch.from_numpy(words.view(np.int32))
+    got = sharded.build_store(rows, fold_factor=fold, popless=popless)
+    want = sharded.build_store(words, "cpu", fold_factor=fold, popless=popless)
+    assert got.words.device == rows.device and got.n_valid == want.n_valid
+    assert torch.equal(got.words, want.words)
+    if popless:
+        assert got.popcounts is None
+    else:
+        assert torch.equal(got.popcounts, want.popcounts)
+    with pytest.raises(ValueError, match="int32"):
+        sharded.build_store(rows.to(torch.int64))
 
 
 @pytest.mark.parametrize(
@@ -194,7 +213,8 @@ def test_dense_local_topk_matches_jax_search_and_full_scan(jax_store, similarity
     fn = jsharded.build_search_fn(jstore, k, similarity, 4, use_pallas=True)
     jv, ji, japprox = (np.asarray(x) for x in fn(q, qp, cut, np.float32(ab[0]),
                                                  np.float32(ab[1])))
-    st = dense_store_from_jax(np.asarray(jstore.words), np.asarray(jstore.popcounts), 20000)
+    st = dense_store_from_jax(np.asarray(jstore.words), np.asarray(jstore.popcounts),
+                              20000, "cpu")
     qt = torch.from_numpy(q.view(np.int32))
     vals, idx, cnt = sharded.dense_local_topk(
         st, qt, torch.from_numpy(qp), torch.from_numpy(cut), k, similarity, *ab,
@@ -225,7 +245,7 @@ def test_fewer_blocks_than_k_keeps_every_block():
     as -inf (the engine drops them)."""
     rng = np.random.default_rng(9)
     words = _words(rng, 300)
-    st = sharded.build_store(words)
+    st = sharded.build_store(words, "cpu")
     q = words[[0, 299]]
     vals, idx, cnt = sharded.dense_local_topk(
         st, torch.from_numpy(q.view(np.int32)),

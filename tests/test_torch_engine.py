@@ -26,7 +26,7 @@ from conftest import random_fingerprint_data
 def library():
     rng = np.random.default_rng(0xE6)
     data = random_fingerprint_data(rng, count=3000, density=0.05, dbkey="k")
-    return data, FingerprintDB(data), JaxDB(data, scan_mode="bitplane")
+    return data, FingerprintDB(data, device="cpu"), JaxDB(data, scan_mode="bitplane")
 
 
 def _queries(data):
@@ -111,7 +111,7 @@ def test_tie_free_indices_match_jax():
     s = scores_np(data.packed_words(), qw[None])[0]
     assert s[noise].max() < float(planted[-1][2])
 
-    got = FingerprintDB(data).search(qw, k=k, return_indices=True)
+    got = FingerprintDB(data, device="cpu").search(qw, k=k, return_indices=True)
     want = JaxDB(data, scan_mode="bitplane").search(qw, k=k, return_indices=True)
     assert got.indices == want.indices
     assert got.scores == want.scores
@@ -123,7 +123,7 @@ def test_fewer_blocks_than_k():
     selection keeps everything and the result is still exact."""
     rng = np.random.default_rng(5)
     data = random_fingerprint_data(rng, count=1000, density=0.1)
-    db = FingerprintDB(data)
+    db = FingerprintDB(data, device="cpu")
     assert db.store.n_padded // sharded.SELECT_BLOCK_COLS == 1
     q = data.packed_words()[[9, 500]]
     s = scores_np(data.packed_words(), q)
@@ -157,7 +157,7 @@ def test_unported_modes_raise(kwargs):
     data = random_fingerprint_data(rng, count=50)
     if kwargs.get("popless"):  # dense-only, as in the JAX engine
         kwargs = {**kwargs, "scan_mode": "dense"}
-    db = FingerprintDB(data, **kwargs)
+    db = FingerprintDB(data, device="cpu", **kwargs)
     if kwargs.get("fold_factor") == 3:
         assert db.fold_factor == 4  # rounded up to a divisor of 32 words
     words = data.packed_words()
@@ -183,7 +183,7 @@ def test_registry_resolves_auto_and_merges(tmp_path):
     write_fsim(tmp_path / "a.fsim", data)
     write_fsim(tmp_path / "b.fsim", data)
     paths = [str(tmp_path / "a.fsim"), str(tmp_path / "b.fsim")]
-    reg = DatabaseRegistry.from_fsim_files(paths)
+    reg = DatabaseRegistry.from_fsim_files(paths, device="cpu")
     jreg = JaxRegistry.from_fsim_files(paths, scan_mode="bitplane")
     q = data.packed_words()[3]
     [got] = reg.search_databases_batch(["a", "b"], ["", ""], q[None], [6], [0.1])

@@ -22,13 +22,14 @@ from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB, rescore
 from gpusimilarity_tpu_torch.ops import fold as fold_ops
 from gpusimilarity_tpu_torch.ops.scan import scores_np
 from gpusimilarity_tpu_torch.parallel import mesh, sharded
+from gpusimilarity_tpu_torch.utils.convert import fingerprint_data_from_jax
 
 from conftest import random_fingerprint_data
 
 
 def _native_off(monkeypatch):
     """Force the numpy paths: the native library may or may not be built."""
-    from gpusimilarity_tpu.utils import native
+    from gpusimilarity_tpu_torch.utils import native
 
     monkeypatch.setattr(native, "_load", lambda: None)
 
@@ -173,7 +174,7 @@ def test_engine_matches_jax_engine(library, name, similarity, alpha, beta):
     data = library
     q = _queries(data)
     ks, cuts = [5, 20, 1, 50], [0.0, 0.3, 0.2, 0.1]
-    db = FingerprintDB(data, **port_kw)
+    db = FingerprintDB(data, device="cpu", **port_kw)
     jdb = JaxDB(data, use_pallas=jax_kw["scan_mode"] == "dense", chunk_cols=512,
                 **jax_kw)
     got = db.search_batch(q, ks, cuts, "f", similarity, alpha, beta,
@@ -213,7 +214,8 @@ def test_virtual_dense_fold4_matches_jax_engine():
     rows = pick_query_rows(3, n, 4, seed=11)
     q = virtual_rows_np(rows, seed=11)
     for popless in (False, True):
-        db = FingerprintDB(data, fold_factor=4, scan_mode="dense", popless=popless)
+        db = FingerprintDB(fingerprint_data_from_jax(data), device="cpu",
+                           fold_factor=4, scan_mode="dense", popless=popless)
         assert isinstance(db.store, sharded.DenseStore)
         assert (db.store.popcounts is None) == popless
         jdb = JaxDB(data, fold_factor=4, scan_mode="dense", use_pallas=True,
@@ -241,7 +243,8 @@ def test_virtual_bitplane_fold4_is_exact():
         fingerprints=VirtualFingerprints(n, 1024, seed=3),
         smiles=ConstantStringTable(b"C", n), ids=ConstantStringTable(b"V", n),
     )
-    db = FingerprintDB(data, fold_factor=4, scan_mode="bitplane")
+    db = FingerprintDB(fingerprint_data_from_jax(data), device="cpu",
+                       fold_factor=4, scan_mode="bitplane")
     assert isinstance(db.store, sharded.BitplaneStore) and db.store.bitcount == 256
     full = virtual_rows_np(np.arange(n), seed=3)
     q = full[[17, 19000]]
@@ -264,7 +267,7 @@ def test_rescore_rows_numpy_matches_jax_rescore(host_path, monkeypatch):
     source equals the JAX engine's numpy rescore, on the numpy path and
     on whichever path this machine has."""
     from gpusimilarity_tpu.ops.scan import scores_np as jscores
-    from gpusimilarity_tpu.utils.synth import VirtualWords
+    from gpusimilarity_tpu_torch.utils.synth import VirtualWords
 
     if host_path == "numpy":
         _native_off(monkeypatch)
@@ -281,4 +284,4 @@ def test_popless_bitplane_rejected():
     rng = np.random.default_rng(1)
     data = random_fingerprint_data(rng, count=50)
     with pytest.raises(ValueError, match="popless"):
-        FingerprintDB(data, scan_mode="bitplane", popless=True)
+        FingerprintDB(data, device="cpu", scan_mode="bitplane", popless=True)

@@ -66,7 +66,9 @@ def fsim_paths(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def services(fsim_paths):
-    port = SearchService(DatabaseRegistry.from_fsim_files(fsim_paths), window_ms=1.0)
+    port = SearchService(
+        DatabaseRegistry.from_fsim_files(fsim_paths, device="cpu"), window_ms=1.0
+    )
     ref = JaxService(JaxRegistry.from_fsim_files(fsim_paths), window_ms=1.0)
     yield port, ref
     port.close()
@@ -138,7 +140,8 @@ def _get(port, path):
 
 def test_http_roundtrip_and_concurrency(fsim_paths):
     srv = SimilarityServer(
-        DatabaseRegistry.from_fsim_files(fsim_paths), port=0, window_ms=20.0
+        DatabaseRegistry.from_fsim_files(fsim_paths, device="cpu"), port=0,
+        window_ms=20.0,
     )
     srv.start_background()
     try:
@@ -183,28 +186,22 @@ def _env():
 
 
 def test_port_imports_without_jax():
-    """The port, its serving and CLI modules and the chip smoke script load
-    without JAX (the machine with the card has none)."""
+    """Every module of the port (its serving and CLI modules and the probe
+    among them) and the chip smoke script load without JAX and without
+    anything of the JAX package (the machine with the card has neither)."""
     code = (
-        "import sys\n"
-        "import gpusimilarity_tpu_torch\n"
-        "import gpusimilarity_tpu_torch.serve.server\n"
-        "import gpusimilarity_tpu_torch.serve.batching\n"
-        "import gpusimilarity_tpu_torch.cli.server\n"
-        "import gpusimilarity_tpu_torch.models.registry\n"
-        "import gpusimilarity_tpu_torch.models.fingerprint_db\n"
-        "import gpusimilarity_tpu_torch.ops.dense_phase1\n"
-        "import gpusimilarity_tpu_torch.ops.fold\n"
-        "import gpusimilarity_tpu_torch.parallel.sharded\n"
-        "import gpusimilarity_tpu_torch.utils.convert\n"
-        "import gpusimilarity_tpu_torch.utils.fsim\n"
-        "import gpusimilarity_tpu_torch.utils.kernels\n"
-        "import gpusimilarity_tpu_torch.utils.synth\n"
+        "import pkgutil, sys\n"
+        "import gpusimilarity_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'gpusimilarity_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    __import__(name)\n"
         "import chip_smoke\n"
-        "import gpusimilarity_tpu.utils.fingerprints, gpusimilarity_tpu.utils.tfsim\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "assert 'gpusimilarity_tpu_torch.tools.probe_mxu' in names, names\n"
+        "assert 'gpusimilarity_tpu_torch.serve.server' in names, names\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'gpusimilarity_tpu'))\n"
         "assert not bad, bad\n"
-        "print('jax-free')\n"
+        "print('jax-free', len(names))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -215,17 +212,19 @@ def test_port_imports_without_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """``chip_smoke.py`` reaches the JAX package's jax-free host code only
-    through the port; it imports neither ``jax`` nor ``gpusimilarity_tpu``."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            roots.add(node.module.split(".")[0])
-    assert "gpusimilarity_tpu_torch" in roots
-    assert not roots & {"jax", "jaxlib", "gpusimilarity_tpu"}, roots
+    """``chip_smoke.py`` and the probe reach the host code only through the
+    port; neither imports ``jax`` or ``gpusimilarity_tpu``, at module level
+    or inside a function."""
+    for path in ("chip_smoke.py", "gpusimilarity_tpu_torch/tools/probe_mxu.py"):
+        tree = ast.parse((REPO / path).read_text())
+        roots = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots.update(a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                roots.add("." if node.level else node.module.split(".")[0])
+        assert roots & {"gpusimilarity_tpu_torch", "."}, (path, roots)
+        assert not roots & {"jax", "jaxlib", "gpusimilarity_tpu"}, (path, roots)
 
 
 def test_cli_raises_without_cuda(fsim_paths, monkeypatch):

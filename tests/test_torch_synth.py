@@ -21,7 +21,7 @@ from gpusimilarity_tpu_torch.utils import synth
          "2048_bits"],
 )
 def test_virtual_rows_match_numpy(row0, n, seed, word_count):
-    got = synth.virtual_rows(row0, n, word_count, seed)
+    got = synth.virtual_rows(row0, n, word_count, seed, "cpu")
     assert got.dtype == torch.int32 and got.shape == (n, word_count)
     want = virtual_rows_np(np.arange(row0, row0 + n), word_count, seed)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
@@ -29,13 +29,13 @@ def test_virtual_rows_match_numpy(row0, n, seed, word_count):
 
 def test_virtual_rows_reject_rows_past_uint32():
     with pytest.raises(ValueError):
-        synth.virtual_rows((1 << 32) - 10, 20)
+        synth.virtual_rows((1 << 32) - 10, 20, device="cpu")
 
 
 @pytest.mark.parametrize("fold", [1, 4])
 def test_virtual_folded_rows_match_numpy(fold, monkeypatch):
     monkeypatch.setattr(synth, "_GEN_ROWS", 1024)  # several generation steps
-    got = synth.virtual_folded_rows(3000, fold, seed=9)
+    got = synth.virtual_folded_rows(3000, fold, seed=9, device="cpu")
     want = fold_words(virtual_rows_np(np.arange(3000), seed=9), fold)
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
@@ -50,7 +50,8 @@ def test_virtual_dense_store_matches_jax(fold, popless, monkeypatch):
 
     monkeypatch.setattr(synth, "_GEN_ROWS", 2048)
     n = 10_000
-    st = synth.build_virtual_dense_store(n, fold, seed=4, popless=popless)
+    st = synth.build_virtual_dense_store(n, fold, seed=4, popless=popless,
+                                         device="cpu")
     jst = jsynth.build_virtual_dense_store(n, fold, seed=4, popless=popless,
                                            chunk_cols=512)
     assert st.n_valid == n and st.word_count == 32 // fold
