@@ -10,7 +10,10 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 (b) hold the bitplane kernel against its plain PyTorch version, bit for
     bit, on a synthetic library of 113,335,291 rows x 1024 bits (the size
     of Enamine REAL in the reference's presentation) made on the card from
-    a seed, at B 1, 32 and 128 (the batches the probe of (m) times it at);
+    a seed, at B 1, 32 and 128 (the batches the probe of (m) times it at),
+    where its code forks: cutoffs 0, 0.35, 1.0 and a negative one mixed in
+    one launch, Tversky, plane buckets 64 and 256 (8- and 16-bit count
+    fields), a query with no set bits;
 (c) the engine's bitplane search (k 20 and 128, batches of 1 and 32) at
     that size against a plain dense full scan over the packed rows;
 (p) where one search's time goes at that size (B 1 and 32, k 128): wall
@@ -20,7 +23,9 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     same rows: bit for bit against its plain version and against the dense
     kernel on the same store, int8 and bf16, B 1, 32 and 128, Tanimoto
     cutoffs 0 and 0.35 mixed in one launch and one Tversky launch; its
-    times, bound and ``torch._int_mm`` yardstick; then the probe
+    times, bound and ``torch._int_mm`` yardstick; the dense kernel against
+    its plain version on stores of 4 and 16 words a row (fold 8 and 2) of
+    the first rows; then the probe
     (``gpusimilarity_tpu_torch.tools.probe_mxu``) at its default rows, which
     times kernels 3, 2 and 1 at B 1, 32 and 128;
 (d) the HTTP server (``python -m gpusimilarity_tpu_torch.cli.server``) on a
@@ -36,7 +41,9 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     and candidates equal to a plain folded full scan's; recall@20 against
     the full-width top 20 (printed, not required); one popless search;
 (b2) the dense kernel against its plain version, bit for bit, in (e)'s
-    store;
+    store: B 1, 5, 32 and 48 with cutoffs 0, 0.35, 1.0 and a negative one mixed in one
+    launch, Tversky, popless, ``n_valid`` off a block boundary (the plain
+    side on a column prefix where the full width would take minutes);
 (p2) the breakdown of (p) for a dense fold-4 search;
 (f) the server with ``--fold 4`` (auto resolves dense) on (d)'s library,
     checked by (e)'s rules;
@@ -94,6 +101,8 @@ KERNELS = {
 REFERENCE_FOLD4_MS = 451.72  # 4x V100, 1.02B rows fold 4 (BASELINE.md)
 PLAIN_PREFIX_COLS = 1 << 27  # (b2): B=32 plain comparisons past the first
 PLAIN_PREFIX_MXU = 1 << 25  # (m): plain comparisons other than B=1 and B=32
+PLAIN_PREFIX_FORKS = 1 << 25  # (b2): the cases added where the kernel forks
+FOLD_CHECK_ROWS = 4_000_000  # (m): rows of the fold-8 and fold-2 stores
 
 PHASE_SECONDS: dict[str, float] = {}
 
@@ -205,10 +214,11 @@ def phase_library(n_rows, device):
 
 
 def phase_kernel_vs_plain(rows, store, device, reps=20):
-    """Kernel against plain version, bit for bit, for both Tanimoto
-    branches, Tversky, plane buckets 64 and 256, B 1, 32 and 128 (the
-    probe's batches) and a zero query. Times at bucket 64: the kernel's
-    median, the plain version's one checked run."""
+    """Kernel against plain version, bit for bit, for cutoffs at, above and
+    below 0 and at 1.0 in one launch, Tversky, plane buckets 64 and 256 (8-
+    and 16-bit count fields), B 1, 32 and 128 (the probe's batches) and a
+    zero query. Times at bucket 64: the kernel's median, the plain
+    version's one checked run."""
     from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
     from gpusimilarity_tpu_torch.ops.bitplane_phase1 import (
         bitplane_phase1_batched,
@@ -227,7 +237,9 @@ def phase_kernel_vs_plain(rows, store, device, reps=20):
     q32 = np.concatenate([lib_q[:31], zero])
     q1 = q32[:1]
     mixed = np.where(np.arange(128) % 2 == 0, 0.0, 0.35).astype(np.float32)
+    mixed4 = np.tile(np.float32([0.0, 0.35, 1.0, -0.5]), 8)
     cases = [
+        ("B32 b64 tanimoto cut0/0.35/1/-0.5", q32, mixed4, "tanimoto", (1, 1), 64),
         ("B1 b64 tanimoto cut0", q1, [0.0], "tanimoto", (1, 1), 64),
         ("B1 b64 tanimoto cut0.35", q1, [0.35], "tanimoto", (1, 1), 64),
         ("B1 b64 tversky cut0.35", q1, [0.35], "tversky", (0.7, 0.3), 64),
@@ -260,8 +272,9 @@ def phase_kernel_vs_plain(rows, store, device, reps=20):
               f"{name}: -inf pattern differs")
         check(same, f"{name}: colmax not bit-identical (max abs err {err})")
         check(torch.equal(cnt, pcnt), f"{name}: counts differ")
-        if sim == "tanimoto" and cut[0] == 0.0:
-            check(int(cnt[0]) == n, f"{name}: cutoff-0 count {int(cnt[0])} != {n}")
+        if sim == "tanimoto":
+            for i in np.flatnonzero(np.asarray(cut) <= 0.0):
+                check(int(cnt[i]) == n, f"{name}: cutoff<=0 count {int(cnt[i])} != {n}")
         if len(q) > 1:
             check(colmax[-1].max().item() == 0.0, f"{name}: zero query not 0")
         log(f"[b] {name}: colmax and counts bit-identical "
@@ -847,10 +860,42 @@ def phase_folded_engine(db, device, reps=(5, 3)):
     return latency
 
 
-def phase_dense_kernel_vs_plain(store, device, reps=(20, 10)):
+def _hold_dense_to_plain(tag, name, args, device):
+    """One dense-kernel case: the checked wrapper the engine calls against
+    the plain version, bit for bit; returns (max abs err, plain ms)."""
+    from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
+
+    words, _pops, q, _qp, cut, _ab, n_valid = args[:7]
+    (pbm, pcnt), plain_ms = timed(lambda: ph2.dense_phase1_plain(*args), device)
+    bm, cnt = ph2.dense_phase1(*args)
+    sync(device)
+    finite = torch.isfinite(bm) & torch.isfinite(pbm)
+    err = (bm[finite] - pbm[finite]).abs().max().item()
+    check(torch.isneginf(bm).eq(torch.isneginf(pbm)).all().item(),
+          f"{name}: -inf pattern differs")
+    check(torch.equal(bm.view(torch.int32), pbm.view(torch.int32)),
+          f"{name}: block maxima not bit-identical (max abs err {err})")
+    check(torch.equal(cnt, pcnt), f"{name}: counts differ")
+    want = min(n_valid, words.shape[1])
+    for i in torch.nonzero(cut <= 0.0).flatten().tolist():
+        check(int(cnt[i]) == want, f"{name}: cutoff<=0 count {int(cnt[i])} != {want}")
+    if len(q) > 1:
+        check(bm[-1].max().item() == 0.0, f"{name}: zero query not 0")
+    log(f"[{tag}] {name} over {words.shape[1]:,} columns "
+        f"(n_valid {want:,}): block maxima and counts bit-identical "
+        f"(counts[:4]={pcnt[:4].tolist()}, max abs err {err}); plain {plain_ms:.3f} ms")
+    return err, plain_ms
+
+
+def phase_dense_kernel_vs_plain(store, device, reps=(10, 10)):
     """(b2) The dense kernel against its plain version, bit for bit, in
-    (e)'s store: Tanimoto cutoffs 0 and 0.35 (mixed in one launch),
-    Tversky 0.7/0.3, popless, B 1 and 32, a zero query."""
+    (e)'s store. At full width: B=1 (Tanimoto, Tversky, popless) and B=32
+    with cutoffs 0 and 0.35 mixed. On column prefixes, where the plain
+    version at full width would take minutes: B=32 Tversky and popless, and
+    where the kernel forks: cutoffs 0, 0.35, 1.0
+    and a negative one in one launch at B 5 (no multiple of 16), 32 and 48
+    (two slices), with ``n_valid`` off a block boundary; a zero query last
+    in every batch over 1."""
     from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
@@ -859,59 +904,77 @@ def phase_dense_kernel_vs_plain(store, device, reps=(20, 10)):
 
     n = store.n_valid
     fold = 32 // store.word_count
-    rows = pick_query_rows(31, n, fold, seed=SEED, rng_seed=SEED)
-    q32 = np.concatenate([
-        fold_words(virtual_rows_np(rows, seed=SEED), fold),
-        np.zeros((1, store.word_count), np.uint32),
-    ])  # 31 library rows + a zero query
+    rows = pick_query_rows(47, n, fold, seed=SEED, rng_seed=SEED)
+    lib_q = fold_words(virtual_rows_np(rows, seed=SEED), fold)
+    zero = np.zeros((1, store.word_count), np.uint32)
+    q32 = np.concatenate([lib_q[:31], zero])  # 31 library rows + a zero query
+    q48 = np.concatenate([lib_q, zero])
     mixed = np.where(np.arange(32) % 2 == 0, 0.0, 0.35).astype(np.float32)
+    mixed4 = np.tile(np.float32([0.0, 0.35, 1.0, -0.5]), 12)
     prefix = min(PLAIN_PREFIX_COLS, store.n_padded)
+    forks = min(PLAIN_PREFIX_FORKS, store.n_padded)
     cases = [
-        # name, queries, cutoffs, similarity, alpha/beta, popless, columns
-        ("B1 tanimoto cut0.35", q32[:1], [0.35], "tanimoto", (1, 1), False, None),
-        ("B1 tversky cut0.35", q32[:1], [0.35], "tversky", (0.7, 0.3), False, None),
-        ("B1 popless cut0", q32[:1], [0.0], "tanimoto", (1, 1), True, None),
-        ("B32 tanimoto cut0/0.35", q32, mixed, "tanimoto", (1, 1), False, None),
-        ("B32 tversky cut0.35", q32, [0.35] * 32, "tversky", (0.7, 0.3), False, prefix),
-        ("B32 popless cut0/0.35", q32, mixed, "tanimoto", (1, 1), True, prefix),
+        # name, queries, cutoffs, similarity, alpha/beta, popless, columns,
+        # n_valid (None: the store's)
+        ("B1 tanimoto cut0.35", q32[:1], [0.35], "tanimoto", (1, 1), False, None, None),
+        ("B1 tversky cut0.35", q32[:1], [0.35], "tversky", (0.7, 0.3), False, None, None),
+        ("B1 popless cut0", q32[:1], [0.0], "tanimoto", (1, 1), True, None, None),
+        ("B32 tanimoto cut0/0.35", q32, mixed, "tanimoto", (1, 1), False, None, None),
+        ("B32 tversky cut0.35", q32, [0.35] * 32, "tversky", (0.7, 0.3), False, prefix, None),
+        ("B32 popless cut0/0.35", q32, mixed, "tanimoto", (1, 1), True, prefix, None),
+        ("B32 tanimoto cut0/0.35/1/-0.5", q32, mixed4[:32], "tanimoto", (1, 1), False, forks, forks - 77),
+        ("B5 tanimoto cut0/0.35/1/-0.5", q32[27:], mixed4[:5], "tanimoto", (1, 1), False, forks, forks - 77),
+        ("B48 tanimoto cut0/0.35/1/-0.5", q48, mixed4, "tanimoto", (1, 1), False, forks, forks - 77),
+        ("B48 popless tversky cut0.35", q48, [0.35] * 48, "tversky", (0.7, 0.3), True, forks, forks - 77),
     ]
     max_err, timing = 0.0, {}
-    for name, q, cut, sim, ab, popless, cols in cases:
+    for name, q, cut, sim, ab, popless, cols, n_valid in cases:
         words = store.words if cols is None else store.words[:, :cols]
         pops = None if popless else store.popcounts[:words.shape[1]]
         args = (
             words, pops, torch.from_numpy(q.view(np.int32)).to(device),
             torch.from_numpy(popcount_rows_np(q)).to(device),
             torch.tensor(cut, dtype=torch.float32, device=device),
-            torch.tensor(ab, dtype=torch.float32, device=device), n, 256, sim,
+            torch.tensor(ab, dtype=torch.float32, device=device),
+            n if n_valid is None else n_valid, 256, sim,
         )
-        bm, cnt = ph2.dense_phase1(*args)
-        (pbm, pcnt), plain_ms = timed(lambda: ph2.dense_phase1_plain(*args), device)
-        finite = torch.isfinite(bm) & torch.isfinite(pbm)
-        err = (bm[finite] - pbm[finite]).abs().max().item()
+        err, plain_ms = _hold_dense_to_plain("b2", name, args, device)
         max_err = max(max_err, err)
-        check(torch.isneginf(bm).eq(torch.isneginf(pbm)).all().item(),
-              f"{name}: -inf pattern differs")
-        check(torch.equal(bm.view(torch.int32), pbm.view(torch.int32)),
-              f"{name}: block maxima not bit-identical (max abs err {err})")
-        check(torch.equal(cnt, pcnt), f"{name}: counts differ")
-        if cut[0] == 0.0:
-            want = min(n, words.shape[1])
-            check(int(cnt[0]) == want, f"{name}: cutoff-0 count {int(cnt[0])} != {want}")
-        if len(q) == 32:
-            check(bm[31].max().item() == 0.0, f"{name}: zero query not 0")
-        where = "all rows" if cols is None else f"the first {cols:,} columns"
-        log(f"[b2] {name} over {where}: block maxima and counts bit-identical "
-            f"(counts[0]={int(cnt[0])}, max abs err {err}); plain {plain_ms:.3f} ms")
         if cols is None and not popless and sim == "tanimoto":
             b = len(q)
-            k_ms = median_ms(lambda: ph2.dense_phase1_kernel(*args), device,
-                             reps[0] if b == 1 else reps[1])
+            r = reps[0] if b == 1 else reps[1]
+            k_ms = median_ms(lambda: ph2.dense_phase1(*args), device, r)
             timing[b] = (k_ms, plain_ms,
                          dense_bound(words.shape[1], store.word_count, b, 256))
             log(f"[b2] B={b} at {n:,} rows: kernel median {k_ms:.3f} ms (one "
                 f"launch and its zeroed counts), plain {plain_ms:.3f} ms (one run)")
     return max_err, timing
+
+
+def phase_dense_folds(rows, device):
+    """(m) The dense kernel on rows of 4 and 16 words (fold 8 and 2: a k
+    step padded with zero words, and two k steps), against its plain
+    version on the first FOLD_CHECK_ROWS rows of (b)'s library."""
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows
+    from gpusimilarity_tpu_torch.parallel.sharded import build_store
+
+    n = min(FOLD_CHECK_ROWS, rows.shape[0])
+    max_err = 0.0
+    for fold in (8, 2):
+        store = build_store(rows[:n], fold_factor=fold)
+        q = torch.cat([fold_words(rows[:31], fold),
+                       torch.zeros_like(rows[:1, :32 // fold])])
+        args = (
+            store.words, store.popcounts, q.contiguous(), popcount_rows(q),
+            torch.from_numpy(np.tile(np.float32([0.0, 0.35, 1.0, -0.5]), 8)).to(device),
+            torch.ones(2, dtype=torch.float32, device=device), n - 77, 256, "tanimoto",
+        )
+        err, _ = _hold_dense_to_plain(
+            "m", f"fold {fold} ({store.word_count} words a row) B32 tanimoto "
+            "cut0/0.35/1/-0.5", args, device)
+        max_err = max(max_err, err)
+    return max_err
 
 
 def phase_profile_dense(store, device, reps=10):
@@ -1023,6 +1086,7 @@ def main() -> int:
         before = ph3.launch_count()
         mxu = phase_mxu_vs_plain(rows, dstore, device)
         check(ph3.launch_count() > before, "(m) launched no kernel")
+        fold_err = phase_dense_folds(rows, device)
         del rows, dstore
         torch.cuda.empty_cache()
         ph3.reset_launch_count()  # the matrix-product main path: the probe
@@ -1088,7 +1152,7 @@ def main() -> int:
             "bound_ms": times[32][2][0], "bound_by": times[32][2][1],
             "library_ms": library_ms, "build_s": builds[name].seconds,
             "ms_b1": times[1][0], "plain_ms_b1": times[1][1],
-            "bound_ms_b1": times[1][2][0],
+            "bound_ms_b1": times[1][2][0], "bound_by_b1": times[1][2][1],
         }
 
     mxu_times = {b: (mxu["ms"][(b, True)][0], mxu["plain_ms"][b],
@@ -1105,12 +1169,9 @@ def main() -> int:
                max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
-    log(json.dumps({"kernels": [
-        k1,
-        entry("dense_phase1", dense_engine_launches + folded_server_launches,
-              max_err2, timing2),
-        k3,
-    ]}))
+    k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches,
+               max(max_err2, fold_err), timing2)
+    log(json.dumps({"kernels": [k1, k2, k3]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -100,14 +100,16 @@ def _kernel_fn():
         lib = kernels.load("bitplane_phase1").lib
         fn = lib.gpusim_bitplane_phase1
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 8 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_int, ptr,
+        fn.argtypes = [ptr] * 10 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ptr,
         ]
         fn.restype = ctypes.c_int
+        lib.gpusim_bitplane_scratch_entries.argtypes = [ctypes.c_int] * 3
+        lib.gpusim_bitplane_scratch_entries.restype = ctypes.c_int
         lib.gpusim_error_string.argtypes = [ctypes.c_int]
         lib.gpusim_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.gpusim_error_string)
+        _FN = (fn, lib.gpusim_error_string, lib.gpusim_bitplane_scratch_entries)
     return _FN
 
 
@@ -115,24 +117,36 @@ def bitplane_phase1_kernel(planes, pops, plane_idx, query_pops, cutoffs,
                            alpha_beta, n_valid, similarity=TANIMOTO):
     """One launch of ``csrc/bitplane_phase1.cu`` on CUDA tensors already
     checked by :func:`bitplane_phase1_batched`: ``(colmax, counts)`` as
-    :func:`bitplane_phase1_plain` returns them. Raises if the launch fails."""
+    :func:`bitplane_phase1_plain` returns them. ``pops`` and ``query_pops``
+    must be the popcounts of the rows and queries the planes and lists stand
+    for (the integer epilogue relies on ``common <= min`` of the two). Raises
+    if the launch fails."""
     if planes.device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {planes.device}")
     b, p = plane_idx.shape
     m = planes.shape[1]
-    if pops.data_ptr() % 16:
-        raise ValueError("pops must be 16-byte aligned for the kernel's loads")
+    if pops.data_ptr() % 16 or planes.data_ptr() % 16 or m % 4:
+        raise ValueError(
+            "planes and pops must be 16-byte aligned and the plane width a "
+            "multiple of 4 for the kernel's loads"
+        )
     if p > 4095:
         raise ValueError(f"plane bucket {p} > 4095 is not supported")
-    fn, err = _kernel_fn()
+    fn, err, scratch_entries = _kernel_fn()
+    tversky = int(similarity == TVERSKY)
     colmax = torch.empty((b, m), dtype=torch.float32, device=planes.device)
     counts = torch.zeros(b, dtype=torch.int32, device=planes.device)
+    # scratch of the kernel's set-up pass: per query its compacted plane list
+    # and count table, and the list's length
+    lists = torch.empty((b, scratch_entries(p, planes.shape[0], tversky)),
+                        dtype=torch.int16, device=planes.device)
+    lens = torch.empty(b, dtype=torch.int32, device=planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     rc = fn(
         planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
         query_pops.data_ptr(), cutoffs.data_ptr(), alpha_beta.data_ptr(),
-        colmax.data_ptr(), counts.data_ptr(), m, b, p, int(n_valid),
-        int(similarity == TVERSKY), stream,
+        colmax.data_ptr(), counts.data_ptr(), lists.data_ptr(), lens.data_ptr(),
+        m, b, p, planes.shape[0], int(n_valid), tversky, stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -159,6 +173,12 @@ def bitplane_phase1_batched(
     ``query_pops`` int32 ``(B,)``, ``cutoffs`` f32 ``(B,)``, ``alpha_beta``
     f32 ``(2,)``; M a multiple of 64. Returns ``(block_max f32 (B, M/64),
     counts int32 (B,), colmax f32 (B, M))``.
+
+    ``pops`` and ``query_pops`` must be the true popcounts of the rows the
+    planes hold and of the bits ``plane_idx`` lists, as the store builders
+    and the engine give them. The kernel's integer epilogue relies on
+    ``common <= min(query_pop, pop)``; with inconsistent popcounts it and
+    the plain version may differ.
     """
     if similarity not in (TANIMOTO, TVERSKY):
         raise ValueError(f"unknown similarity {similarity!r}")

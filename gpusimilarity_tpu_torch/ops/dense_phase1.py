@@ -7,7 +7,8 @@ columns scoring >= the query's cutoff. Nothing per column leaves the
 kernel.
 
 For CUDA tensors it launches the hand-written kernel
-``csrc/dense_phase1.cu`` or raises; it never falls back. For CPU tensors it
+``csrc/dense_phase1.cu`` (intersection counts from the binary tensor-core
+product, an integer Tanimoto epilogue) or raises; it never falls back. For CPU tensors it
 runs :func:`dense_phase1_plain`, the plain PyTorch version of the same
 function, which the tests hold against the JAX Pallas kernel and which the
 kernel matches bit for bit on the card.
@@ -22,8 +23,9 @@ import torch
 
 from .scan import TANIMOTO, TVERSKY, score_columns
 
-# the kernel's thread block: 256 columns, so a selection block is 1..256
-MAX_BLOCK = 256
+# the selection blocks the kernel takes: a power of two of whole 8-column
+# tiles of the tensor-core product (the plain version takes 1..MAX_BLOCK)
+KERNEL_MIN_BLOCK, MAX_BLOCK = 8, 256
 
 _LAUNCH_LOCK = threading.Lock()
 _launches = 0
@@ -111,10 +113,14 @@ def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
     """One launch of ``csrc/dense_phase1.cu`` on CUDA tensors already
     checked by :func:`dense_phase1`: ``(block_max, counts)`` as
     :func:`dense_phase1_plain` returns them. ``words`` may be a column
-    prefix of a wider store (its row stride is passed). Raises if the
-    launch fails."""
+    prefix of a wider store (its row stride is passed). Raises if
+    ``block`` is under :data:`KERNEL_MIN_BLOCK` or the launch fails."""
     if words.device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {words.device}")
+    if block < KERNEL_MIN_BLOCK:
+        raise ValueError(
+            f"the kernel needs a block of >= {KERNEL_MIN_BLOCK} columns, got {block}"
+        )
     wf, n = words.shape
     b = queries.shape[0]
     fn, err = _kernel_fn()
@@ -153,7 +159,13 @@ def dense_phase1(
     ``(N,)`` or None for a popless store; ``queries`` int32 ``(B, Wf)``;
     ``query_pops`` int32 ``(B,)``; ``cutoffs`` f32 ``(B,)``;
     ``alpha_beta`` f32 ``(2,)``; ``block`` a power of two up to 256 that
-    divides N. Returns ``(block_max f32 (B, N/block), counts int64 (B,))``.
+    divides N (on the card at least 8). Returns ``(block_max f32 (B,
+    N/block), counts int64 (B,))``.
+
+    ``pops`` and ``query_pops`` must be the true popcounts of the words
+    they stand for, as the store builders and the engine give them. The
+    kernel's integer epilogue relies on ``common <= min(query_pop, pop)``;
+    with inconsistent popcounts it and the plain version may differ.
     """
     if similarity not in (TANIMOTO, TVERSKY):
         raise ValueError(f"unknown similarity {similarity!r}")

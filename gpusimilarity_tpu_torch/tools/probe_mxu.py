@@ -16,9 +16,10 @@ is the cost of one batch, not of one byte.
 Times are medians of ``--repeats`` calls, each between two CUDA events;
 the first call (which builds the kernel) is timed apart as ``compile_s``.
 Each configuration prints one JSON line, with the least time the card could
-take (``bound_ms``: the larger of the bytes over 3.35 TB/s and, for the
-matrix product, its operations over the int8 or bf16 tensor-core peak; an
-H100 SXM's data-sheet rates at 700 W). The card is the default; without one
+take (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
+tensor-core operations over their peak: int8 or bf16 for the matrix product,
+an H100 SXM's data-sheet rates at 700 W, and for the dense scan's binary
+product the rate ``tools/probe_b1.py`` measured). The card is the default; without one
 the probe raises. ``--cpu_only`` runs the plain versions on the host, for
 the tests: its times are host times of the plain code, not a device's.
 """
@@ -46,6 +47,11 @@ DEFAULT_ROWS = 113_335_291
 # NVIDIA H100 SXM data sheet, dense, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
+# The binary tensor-core product (mma.sync m16n8k256 b1 and.popc) has no rate
+# in the data sheet. This one is MEASURED: tools/probe_b1.py on an NVIDIA H100
+# 80GB HBM3 at a 700.00 W power limit, 1.40e11 warp instructions a second over
+# 132 SMs, 2 * 16 * 8 * 256 bit operations each.
+PEAK_OPS_PER_S["b1"] = 9.19e15
 
 
 def parse_args(argv=None):
@@ -67,11 +73,12 @@ def parse_args(argv=None):
 
 def bound(bytes_moved: float, ops: float = 0.0, kind: str = "int8"):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
-    and ``ops`` over the tensor-core peak of ``kind``."""
+    and ``ops`` over the tensor-core peak of ``kind`` (``"b1"``: the measured
+    rate of the binary product, named so in ``bound_by``)."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S
     by_ops = ops / PEAK_OPS_PER_S[kind]
     if by_ops > by_bytes:
-        return by_ops * 1e3, "operations"
+        return by_ops * 1e3, f"{kind} operations" if kind == "b1" else "operations"
     return by_bytes * 1e3, "bytes"
 
 
@@ -84,10 +91,12 @@ def mxu_bound(n: int, b: int, block: int, int8: bool):
 
 
 def dense_bound(n: int, wf: int, b: int, block: int):
-    """Kernel 2 over ``n`` columns of ``wf`` words with popcounts: bytes
-    only (its AND and popcount work has no tensor-core rate)."""
+    """Kernel 2 over ``n`` columns of ``wf`` words with popcounts: its
+    bytes, or its AND-popcount work (2 bit operations per query, column and
+    bit) over the measured rate of the binary tensor-core product."""
     moved = n * (wf * 4 + 2) + b * (wf * 4 + 12)
-    return bound(moved + b * (n // block) * 4 + b * 8)
+    ops = 2.0 * b * 32 * wf * n
+    return bound(moved + b * (n // block) * 4 + b * 8, ops, "b1")
 
 
 def bitplane_bound(plane_idx: np.ndarray, m: int, b: int):

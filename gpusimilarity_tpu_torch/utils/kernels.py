@@ -7,9 +7,11 @@ into ``<build dir>/<name>-<source hash>.so``, with::
          -Xcompiler -fPIC -Xptxas -v
 
 and never ``--use_fast_math``: the kernels must divide with correct IEEE
-rounding to match the plain PyTorch versions bit for bit. The source hash
-names the library, so an edited source rebuilds and an unchanged one loads
-the cached build. A failed build raises with the compiler's output.
+rounding to match the plain PyTorch versions bit for bit. The hash of the
+source, of every header under ``csrc/`` it includes (``#include "x.cuh"``,
+followed through the headers) and of the flags names the library, so an
+edited source or header rebuilds and an unchanged one loads the cached
+build. A failed build raises with the compiler's output.
 
 The build dir is ``build/gpusim_torch`` in the checkout when the package
 runs from source (``build/`` is git-ignored), and ``gpusim_torch`` under
@@ -22,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -75,6 +78,38 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build kernels")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(src: Path) -> list[Path]:
+    """``src`` and every header it includes by a quoted name, directly or
+    through another such header, that exists beside it; in inclusion order,
+    each once."""
+    found: list[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        names = _INCLUDE.findall(path.read_bytes())
+        todo.extend(
+            h for h in (path.parent / n.decode() for n in reversed(names))
+            if h.is_file()
+        )
+    return found
+
+
+def source_digest(src: Path) -> str:
+    """The 16 hex digits that name a build of ``src``: its bytes, its
+    headers' and the compiler flags."""
+    h = hashlib.sha256()
+    for path in source_files(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _compile(src: Path, out: Path) -> tuple[float, str]:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{threading.get_ident()}")
@@ -99,7 +134,8 @@ def load_all(names=KERNELS) -> dict[str, Build]:
 
 
 def load(name: str) -> Build:
-    """Build ``csrc/<name>.cu`` if no build of this exact source exists, then
+    """Build ``csrc/<name>.cu`` if no build of this exact source (and the
+    headers it includes) exists, then
     load it. Thread-safe, one lock per kernel; later calls return the
     loaded library."""
     with _LOCK:
@@ -109,10 +145,7 @@ def load(name: str) -> Build:
         if build is not None:
             return build
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        out = build_dir() / f"{name}-{digest}.so"
+        out = build_dir() / f"{name}-{source_digest(src)}.so"
         seconds, log = 0.0, ""
         if not out.exists():
             seconds, log = _compile(src, out)

@@ -273,11 +273,124 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain_on_cuda(name, cuda_device):
-    """The CUDA kernel and the plain version agree bit for bit on the card."""
-    args = _port_args(_case(name), cuda_device)
+    """The CUDA kernel and the plain version agree bit for bit on the card
+    (blocks of 4 widened to the kernel's narrowest, 8)."""
+    args = list(_port_args(_case(name), cuda_device))
+    args[7] = max(args[7], ph1.KERNEL_MIN_BLOCK)
     before = ph1.launch_count()
     bmax, cnt = ph1.dense_phase1(*args)
     assert ph1.launch_count() == before + 1
+    pbmax, pcnt = ph1.dense_phase1_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+
+
+# name -> (fold, rows, n_valid, B, cutoffs cycled over the batch, similarity,
+#          alpha/beta, popless); where the kernel's code forks
+FORK_CASES = {
+    "mixed_cutoffs_b32": (4, 20000, 19777, 32, (0.0, 0.1, 1.0, -0.5, 0.35), "tanimoto", (1.0, 1.0), False),
+    "tversky_b32": (4, 20000, 19777, 32, (0.15, 0.0), "tversky", (0.7, 0.3), False),
+    "popless_b32": (4, 20000, 19777, 32, (0.0, 0.1), "tanimoto", (1.0, 1.0), True),
+    "b1": (4, 20000, 19777, 1, (0.1,), "tanimoto", (1.0, 1.0), False),
+    "b5_not_multiple_of_16": (4, 20000, 19777, 5, (0.12, 1.0), "tanimoto", (1.0, 1.0), False),
+    "b48_two_slices": (4, 20000, 19777, 48, (0.0, 0.1, 1.0), "tanimoto", (1.0, 1.0), False),
+    "fold8_wf4": (8, 9000, 9000, 32, (0.0, 0.2), "tanimoto", (1.0, 1.0), False),
+    "fold2_wf16": (2, 9000, 8999, 32, (0.0, 0.05), "tanimoto", (1.0, 1.0), False),
+    "unfolded_wf32_b128": (1, 9000, 8191, 128, (0.0, 0.03), "tanimoto", (1.0, 1.0), False),
+    "unfolded_tversky_popless": (1, 5000, 4097, 17, (0.03,), "tversky", (0.3, 0.7), True),
+}
+
+
+def _fork_args(name, device):
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+
+    fold, n, n_valid, b, cuts, sim, ab, popless = FORK_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    rows = _words(rng, n, density=0.045)
+    rows[n_valid:] = 0
+    q = rows[rng.integers(0, n_valid, b)].copy()
+    q[-1] = 0 if b > 1 else q[-1]  # a zero query in every batch over 1
+    store = sharded.build_store(rows, device, fold_factor=fold, popless=popless)
+    qf = np.ascontiguousarray(fold_words(q, fold))
+    cut = np.resize(np.float32(cuts), b)
+    return (
+        store.words, store.popcounts, torch.from_numpy(qf.view(np.int32)).to(device),
+        torch.from_numpy(popcount_rows_np(qf)).to(device),
+        torch.from_numpy(cut).to(device),
+        torch.tensor(ab, dtype=torch.float32, device=device), n_valid, 256, sim,
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FORK_CASES))
+def test_kernel_forks_match_plain_on_cuda(name, cuda_device):
+    """The CUDA kernel agrees with the plain version bit for bit where its
+    code forks: cutoffs 0, 0.35, 1.0 and a negative one mixed in one launch,
+    Tversky, popless, batches of 1, 5, 32, 48 and 128, rows of 4, 8, 16 and
+    32 words, ``n_valid`` off a block boundary."""
+    args = _fork_args(name, cuda_device)
+    bmax, cnt = ph1.dense_phase1(*args)
+    pbmax, pcnt = ph1.dense_phase1_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+    if args[2].shape[0] > 1:
+        assert bmax[-1].max().item() == 0.0  # the zero query
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [8, 64])
+def test_kernel_small_blocks_and_unaligned_prefix_on_cuda(block, cuda_device):
+    """The kernel on blocks narrower than a staged sub-tile, and on
+    a column prefix whose width is no multiple of the sub-tile (the plain-load
+    staging path)."""
+    args = list(_fork_args("mixed_cutoffs_b32", cuda_device))
+    cols = 20000 // 64 * 64 - 64  # a prefix: same row stride, ragged last sub-tile
+    args[0], args[1], args[7] = args[0][:, :cols], args[1][:cols], block
+    bmax, cnt = ph1.dense_phase1_kernel(*args)
+    pbmax, pcnt = ph1.dense_phase1_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("similarity", ["tanimoto", "tversky"])
+def test_kernel_2048_bit_rows_on_cuda(similarity, cuda_device):
+    """Rows of 64 words (eight k steps; 16 queries per kernel launch, so a
+    batch of 20 runs as two slices) against the plain version."""
+    rng = np.random.default_rng(64)
+    bits = rng.random((3000, 2048)) < 0.04
+    rows = np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+    q = rows[rng.integers(0, 2900, 20)].copy()
+    q[-1] = 0
+    store = sharded.build_store(rows, cuda_device)
+    args = (
+        store.words, store.popcounts, torch.from_numpy(q.view(np.int32)).to(cuda_device),
+        torch.from_numpy(popcount_rows_np(q)).to(cuda_device),
+        torch.from_numpy(np.resize(np.float32([0.0, 0.03, 1.0]), 20)).to(cuda_device),
+        torch.tensor([0.7, 0.3], dtype=torch.float32, device=cuda_device), 2900, 64,
+        similarity,
+    )
+    bmax, cnt = ph1.dense_phase1(*args)
+    pbmax, pcnt = ph1.dense_phase1_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("popless", [False, True], ids=["pops", "popless"])
+def test_kernel_on_a_view_off_16_byte_alignment_on_cuda(popless, cuda_device):
+    """A column window that starts 3 columns into the store: no address is
+    16-byte aligned, so every sub-tile is staged with plain loads."""
+    args = list(_fork_args("popless_b32" if popless else "mixed_cutoffs_b32", cuda_device))
+    cols = 19 * 1024
+    args[0] = args[0][:, 3:3 + cols]
+    args[1] = None if popless else args[1][3:3 + cols].clone()  # contiguous, as the wrapper asks
+    args[6] = cols - 100
+    bmax, cnt = ph1.dense_phase1(*args)
     pbmax, pcnt = ph1.dense_phase1_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))

@@ -214,6 +214,25 @@ def test_probe_cpu_only_prints_one_json_line_per_configuration():
         assert r["p50_ms"] > 0 and r["fps_per_chip"] > 0
 
 
+def test_dense_bound_takes_the_larger_of_bytes_and_b1_operations():
+    """Kernel 2's bound: its bytes over the memory rate up to a few hundred
+    queries, then its AND-popcount bit operations over the measured rate of
+    the binary tensor-core product, named as such."""
+    from gpusimilarity_tpu_torch.tools import probe_mxu
+
+    n, wf, block = 1_020_017_664, 8, 256
+    ms, by = probe_mxu.dense_bound(n, wf, 32, block)
+    moved = n * (wf * 4 + 2) + 32 * (wf * 4 + 12) + 32 * (n // block) * 4 + 32 * 8
+    assert by == "bytes" and ms == pytest.approx(moved / 3.35e12 * 1e3)
+    ops = 2.0 * 32 * 256 * n
+    assert ops / probe_mxu.PEAK_OPS_PER_S["b1"] * 1e3 < ms
+    ms, by = probe_mxu.dense_bound(n, wf, 1024, block)
+    assert by == "b1 operations"
+    assert ms == pytest.approx(2.0 * 1024 * 256 * n / probe_mxu.PEAK_OPS_PER_S["b1"] * 1e3)
+    # the matrix-product kernel's bound keeps its own names
+    assert probe_mxu.mxu_bound(n, 128, block, True)[1] == "operations"
+
+
 # kernel cases on the card: (rows, n_valid, offset, queries, block,
 # similarity); tails shorter than a 256-column tile, every block width, one
 # and several 16-query tiles, and a batch over the 128 queries of a launch

@@ -177,6 +177,29 @@ def test_build_dir_in_source_tree_else_user_cache(tmp_path, monkeypatch):
     assert kernels.build_dir().parent.parent == Path(ph1.__file__).parents[2]
 
 
+def test_kernel_digest_covers_included_headers(tmp_path):
+    """The name of a build hashes the source and every header it includes by
+    a quoted name, through other headers too: editing any of them rebuilds,
+    editing a file that is not included does not."""
+    from gpusimilarity_tpu_torch.utils import kernels
+
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n  #  include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n#include "a.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#pragma once\n")
+    (tmp_path / "other.cuh").write_text("#pragma once\n")
+    src = tmp_path / "k.cu"
+    assert [f.name for f in kernels.source_files(src)] == ["k.cu", "a.cuh", "b.cuh"]
+    digest = kernels.source_digest(src)
+    (tmp_path / "other.cuh").write_text("int unrelated;\n")
+    assert kernels.source_digest(src) == digest
+    (tmp_path / "b.cuh").write_text("#pragma once\nint edited;\n")
+    assert kernels.source_digest(src) != digest
+    # the two serving kernels share one header of score arithmetic
+    for name in ("bitplane_phase1", "dense_phase1"):
+        files = kernels.source_files(kernels.CSRC / f"{name}.cu")
+        assert [f.name for f in files] == [f"{name}.cu", "phase1_epilogue.cuh"]
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -196,3 +219,58 @@ def test_kernel_matches_plain_on_cuda(library, case, cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(colmax.view(torch.int32), pcolmax.view(torch.int32))
     assert torch.equal(cnt, pcnt)
+
+
+# (similarity, alpha/beta, cutoffs cycled over the batch, batch, bucket);
+# where the kernel's code forks
+FORK_CASES = {
+    "mixed_cutoffs_b32": ("tanimoto", (1.0, 1.0), (0.0, 0.04, 1.0, -0.5, 0.35), 32, 64),
+    "mixed_cutoffs_b128": ("tanimoto", (1.0, 1.0), (0.0, 0.03, 1.0), 128, 64),
+    "tversky_b32": ("tversky", (0.7, 0.3), (0.05, 0.0), 32, 64),
+    "b1_positive_cutoff": ("tanimoto", (1.0, 1.0), (0.04,), 1, 64),
+    "bucket128_16bit_fields": ("tanimoto", (1.0, 1.0), (0.0, 0.04), 4, 128),
+    "bucket512_16bit_fields": ("tanimoto", (1.0, 1.0), (0.0, 0.04), 4, 512),
+    "bucket512_tversky": ("tversky", (0.3, 0.7), (0.1,), 3, 512),
+    "bucket16_dense_query": ("tanimoto", (1.0, 1.0), (0.1, 0.0), 2, 1024),
+}
+
+
+def _fork_args(library, case, device):
+    words, planes, pops = library
+    similarity, ab, cuts, b, bucket = FORK_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    rows = rng.permutation(N_VALID)
+    q = words[rows[pops[rows] <= 64][:b]].copy()  # every query fits bucket 64
+    if bucket == 1024:
+        q |= words[rng.integers(0, N_VALID, (8, b))].sum(axis=0, dtype=np.uint32)
+    if b > 1:
+        q[-1] = 0  # a query with no set bits
+    plane_idx, p = query_plane_indices(q, 1024, bucket)
+    assert p == bucket
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return similarity, (
+        t(planes.view(np.int32)), t(pops.astype(np.int16)), t(plane_idx),
+        t(popcount_rows_np(q)), t(np.resize(np.float32(cuts), b)),
+        t(np.float32(ab)),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FORK_CASES))
+def test_kernel_forks_match_plain_on_cuda(library, case, cuda_device):
+    """The CUDA kernel agrees with the plain version bit for bit where its
+    code forks: cutoffs 0, positive, 1.0 and negative mixed in one launch,
+    Tversky, plane buckets on both sides of the 8-bit count fields, a query
+    with no set bits, batches of 1, 32 and 128, ``n_valid`` inside a word."""
+    similarity, args = _fork_args(library, case, cuda_device)
+    n_valid = N_VALID - 13  # ends inside a word
+    _b, cnt, colmax = ph1.bitplane_phase1_batched(*args, n_valid, similarity)
+    pcolmax, pcnt = ph1.bitplane_phase1_plain(*args, n_valid, similarity)
+    torch.cuda.synchronize()
+    assert torch.equal(colmax.view(torch.int32), pcolmax.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+    if args[2].shape[0] > 1:
+        assert colmax[-1].max().item() == 0.0  # the zero query
