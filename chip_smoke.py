@@ -21,13 +21,14 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     its top ops from torch.profiler, and the idle share;
 (m) the matrix-product kernel (kernel 3) on an unfolded dense store of the
     same rows: bit for bit against its plain version and against the dense
-    kernel on the same store, int8 and bf16, B 1, 32 and 128, Tanimoto
-    cutoffs 0 and 0.35 mixed in one launch and one Tversky launch; its
-    times, bound and ``torch._int_mm`` yardstick; the dense kernel against
-    its plain version on stores of 4 and 16 words a row (fold 8 and 2) of
-    the first rows; then the probe
-    (``gpusimilarity_tpu_torch.tools.probe_mxu``) at its default rows, which
-    times kernels 3, 2 and 1 at B 1, 32 and 128;
+    kernel on the same store, B 1, 32, 64, 100 and 128, Tanimoto cutoffs 0
+    and 0.35 mixed in one launch and one Tversky launch, then block 64 with
+    ``n_valid`` off a block boundary and a shard offset; its times beside
+    the dense kernel's at B 1, 32, 64 and 128, its bound and the
+    ``torch._int_mm`` yardstick; the dense kernel against its plain version
+    on stores of 4 and 16 words a row (fold 8 and 2) of the first rows; then
+    the probe (``gpusimilarity_tpu_torch.tools.probe_mxu``) at its default
+    rows, which times kernels 3, 2 and 1 at B 1, 32, 64 and 128;
 (d) the HTTP server (``python -m gpusimilarity_tpu_torch.cli.server``) on a
     1,618,358-row ``.fsim`` (the ChEMBL size of the same slide), answering
     fp_hex self-queries (two of them concurrent, one Tversky), a SMILES
@@ -392,13 +393,17 @@ def phase_profile(rows, store, device, reps=10):
 
 def phase_mxu_vs_plain(rows, store, device, reps=10):
     """(m) Kernel 3 against its plain version and against kernel 2 on one
-    unfolded dense store, bit for bit: int8 and bf16, B 1, 32 and 128,
-    Tanimoto cutoffs 0 and 0.35 mixed in one launch and a Tversky 0.7/0.3
-    launch, a zero query in every batch over 1. Against kernel 2 at full
-    size; against the plain version at full size for B=1 and B=32
-    Tanimoto, else on the first PLAIN_PREFIX_MXU columns. Times at full
-    size: kernel 3 and kernel 2 alone, the plain version at B 1 and 32, and
-    ``torch._int_mm`` on the unpacked bits at B=32 (the product alone)."""
+    unfolded dense store, bit for bit: B 1, 32, 64, 100 (no multiple of 16)
+    and 128, Tanimoto cutoffs 0 and 0.35 mixed in one launch and a Tversky
+    0.7/0.3 launch, a zero query in every batch over 1. Against kernel 2 at
+    full size; against the plain version at full size for B=1 and B=32
+    Tanimoto, else on the first PLAIN_PREFIX_MXU columns (a prefix of the
+    store: its row stride stays the store's). Then where the kernel forks, on
+    that prefix: selection block 64, ``n_valid`` 77 columns off a block
+    boundary and a shard offset, at B 100 and 128. Times at full size: kernel
+    3 and kernel 2 alone at B 1, 32, 64 and 128, the plain version at B 1 and
+    32, and ``torch._int_mm`` on the unpacked bits at B=32 (the product
+    alone)."""
     from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
     from gpusimilarity_tpu_torch.ops import mxu_phase1 as ph3
     from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
@@ -410,7 +415,21 @@ def phase_mxu_vs_plain(rows, store, device, reps=10):
                            np.zeros((1, 32), np.uint32)])  # + a zero query
     prefix = min(PLAIN_PREFIX_MXU, n_cols)
     results = {"max_err": 0.0, "ms": {}, "plain_ms": {}, "dense_ms": {}}
-    for b in (1, 32, 128):
+
+    def hold(name, kernel, want, whose):
+        """Block maxima and counts of one kernel launch against another
+        version's, bit for bit; returns the max abs error of the finite ones."""
+        (bm, cnt), (wbm, wcnt) = kernel, want
+        finite = torch.isfinite(bm) & torch.isfinite(wbm)
+        err = (bm[finite] - wbm[finite]).abs().max().item()
+        check(torch.isneginf(bm).eq(torch.isneginf(wbm)).all().item(),
+              f"{name}: -inf pattern differs from {whose}")
+        check(torch.equal(bm.view(torch.int32), wbm.view(torch.int32)),
+              f"{name}: block maxima not bit-identical to {whose} (max abs err {err})")
+        check(torch.equal(cnt, wcnt), f"{name}: counts differ from {whose}")
+        return err
+
+    for b in (1, 32, 64, 100, 128):
         q = q128[:1] if b == 1 else q128[128 - b:]
         qt = torch.from_numpy(q.view(np.int32)).to(device)
         qbits = ph3.query_bits(qt)
@@ -422,56 +441,57 @@ def phase_mxu_vs_plain(rows, store, device, reps=10):
             abt = torch.tensor(ab, dtype=torch.float32, device=device)
             full_plain = b == 1 or (b == 32 and sim == "tanimoto")
             cols = n_cols if full_plain else prefix
+            name = f"B{b} {sim}"
             dargs = (store.words, store.popcounts, qt, qp, ct, abt, n, 256, sim)
-            dbm, dcnt = ph2.dense_phase1(*dargs)
             pargs = (store.words[:, :cols], store.popcounts[:cols], qbits, qp, ct,
                      abt, 0, 256, n, sim)
             (pbm, pcnt), p_ms = timed(lambda: ph3.mxu_phase1_plain(*pargs), device)
             if full_plain:
                 results["plain_ms"].setdefault(b, p_ms)
             where = "all rows" if full_plain else f"the first {cols:,} columns"
-            for int8 in (True, False):
-                name = f"B{b} {'int8' if int8 else 'bf16'} {sim}"
-                bm, cnt = ph3.mxu_phase1(store.words, store.popcounts, qbits, qp, ct,
-                                         abt, 0, 256, n, sim, int8)
-                sync(device)
-                check(torch.equal(bm.view(torch.int32), dbm.view(torch.int32)),
-                      f"{name}: block maxima differ from the dense kernel's")
-                check(torch.equal(cnt, dcnt), f"{name}: counts differ from the dense kernel's")
-                if full_plain:
-                    kbm, kcnt = bm, cnt
-                else:
-                    kbm, kcnt = ph3.mxu_phase1(*pargs, int8)
-                finite = torch.isfinite(kbm) & torch.isfinite(pbm)
-                err = (kbm[finite] - pbm[finite]).abs().max().item()
-                results["max_err"] = max(results["max_err"], err)
-                check(torch.isneginf(kbm).eq(torch.isneginf(pbm)).all().item(),
-                      f"{name}: -inf pattern differs from the plain version")
-                check(torch.equal(kbm.view(torch.int32), pbm.view(torch.int32)),
-                      f"{name}: block maxima not bit-identical to the plain "
-                      f"version (max abs err {err})")
-                check(torch.equal(kcnt, pcnt), f"{name}: counts differ from the plain version")
-                if sim == "tanimoto":
-                    check(int(cnt[0]) == n, f"{name}: cutoff-0 count {int(cnt[0])} != {n}")
-                if b > 1:
-                    check(bm[-1].max().item() == 0.0, f"{name}: zero query not 0")
-                log(f"[m] {name}: block maxima and counts bit-identical to the dense "
-                    f"kernel's over all rows and to the plain version's over {where} "
-                    f"(counts[0]={int(cnt[0])}, max abs err {err})")
-                if sim == "tanimoto":
-                    args = (store.words, store.popcounts, qbits, qp, ct, abt, 0, 256,
-                            n, sim, int8)
-                    k_ms = median_ms(lambda: ph3.mxu_phase1_kernel(*args), device, reps)
-                    bound = mxu_bound(n_cols, b, 256, int8)
-                    results["ms"][(b, int8)] = (k_ms, bound)
-                    log(f"[m] B={b} {'int8' if int8 else 'bf16'} at {n:,} rows: kernel "
-                        f"median {k_ms:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
-                        f"({bound[0] / k_ms:.3f} of it)")
+            bm, cnt = ph3.mxu_phase1(store.words, store.popcounts, qbits, qp, ct,
+                                     abt, 0, 256, n, sim)
+            sync(device)
+            hold(name, (bm, cnt), ph2.dense_phase1(*dargs), "the dense kernel's")
+            err = hold(name, (bm, cnt) if full_plain else ph3.mxu_phase1(*pargs),
+                       (pbm, pcnt), "the plain version's")
+            results["max_err"] = max(results["max_err"], err)
             if sim == "tanimoto":
+                check(int(cnt[0]) == n, f"{name}: cutoff-0 count {int(cnt[0])} != {n}")
+            if b > 1:
+                check(bm[-1].max().item() == 0.0, f"{name}: zero query not 0")
+            log(f"[m] {name}: block maxima and counts bit-identical to the dense "
+                f"kernel's over all rows and to the plain version's over {where} "
+                f"(counts[0]={int(cnt[0])}, max abs err {err})")
+            if sim == "tanimoto" and b != 100:
+                args = (store.words, store.popcounts, qbits, qp, ct, abt, 0, 256, n, sim)
+                k_ms = median_ms(lambda: ph3.mxu_phase1_kernel(*args), device, reps)
                 d_ms = median_ms(lambda: ph2.dense_phase1_kernel(*dargs), device, reps)
+                bound = mxu_bound(n_cols, b, 256)
+                results["ms"][b] = (k_ms, bound)
                 results["dense_ms"][b] = d_ms
-                log(f"[m] B={b} dense kernel on the same store: median {d_ms:.3f} ms; "
-                    f"plain mxu version {p_ms:.3f} ms over {where}")
+                log(f"[m] B={b} at {n:,} rows: kernel median {k_ms:.3f} ms, bound "
+                    f"{bound[0]:.3f} ms by {bound[1]} ({bound[0] / k_ms:.3f} of it); "
+                    f"dense kernel on the same store {d_ms:.3f} ms "
+                    f"({d_ms / k_ms:.2f}x); plain version {p_ms:.3f} ms over {where}")
+        if b in (100, 128):
+            # where the kernel forks: block 64, n_valid off a block boundary
+            # and a shard offset, on the strided prefix
+            offset, sim = 4096, "tanimoto"
+            ct = torch.from_numpy(np.resize(np.float32([0.0, 0.35, 1.0, -0.5]), b)).to(device)
+            abt = torch.ones(2, dtype=torch.float32, device=device)
+            fargs = (store.words[:, :prefix], store.popcounts[:prefix], qbits, qp, ct,
+                     abt, offset, 64, offset + prefix - 77, sim)
+            got = ph3.mxu_phase1(*fargs)
+            name = f"B{b} block 64 n_valid -77 offset {offset} cut0/0.35/1/-0.5"
+            err = hold(name, got, ph3.mxu_phase1_plain(*fargs), "the plain version's")
+            hold(name, got, ph2.dense_phase1(
+                store.words[:, :prefix], store.popcounts[:prefix], qt, qp, ct, abt,
+                prefix - 77, 64, sim), "the dense kernel's")
+            results["max_err"] = max(results["max_err"], err)
+            check(int(got[1][0]) == prefix - 77, f"{name}: count {int(got[1][0])}")
+            log(f"[m] {name}: bit-identical to the plain version and the dense "
+                f"kernel over the first {prefix:,} columns (max abs err {err})")
         if b == 32:
             results["library_ms"] = _int_mm_ms(store, qbits, device)
             log(f"[m] B=32 torch._int_mm of the query bits and the unpacked library "
@@ -500,9 +520,9 @@ def _int_mm_ms(store, qbits, device, chunk=1 << 20):
 
 
 def phase_probe(device):
-    """(m) The probe's functions at its default rows: kernel 3 (int8 and
-    bf16) and kernel 2 on one dense store, kernel 1 on a bitplane store,
-    B 1, 32 and 128; one JSON line per configuration."""
+    """(m) The probe's functions at its default rows: kernel 3 and kernel 2
+    on one dense store, kernel 1 on a bitplane store, B 1, 32, 64 and 128; one
+    JSON line per configuration."""
     from gpusimilarity_tpu_torch.tools import probe_mxu
 
     records = []
@@ -1155,14 +1175,13 @@ def main() -> int:
             "bound_ms_b1": times[1][2][0], "bound_by_b1": times[1][2][1],
         }
 
-    mxu_times = {b: (mxu["ms"][(b, True)][0], mxu["plain_ms"][b],
-                     mxu["ms"][(b, True)][1]) for b in (1, 32)}
+    mxu_times = {b: (mxu["ms"][b][0], mxu["plain_ms"][b], mxu["ms"][b][1])
+                 for b in (1, 32)}
     k3 = entry("mxu_phase1", probe_launches, mxu["max_err"], mxu_times,
                mxu["library_ms"])
     k3.update({
-        "ms_b128": mxu["ms"][(128, True)][0],
-        "bound_ms_b128": mxu["ms"][(128, True)][1][0],
-        "ms_bf16": {b: mxu["ms"][(b, False)][0] for b in (1, 32, 128)},
+        "ms_b64": mxu["ms"][64][0], "bound_ms_b64": mxu["ms"][64][1][0],
+        "ms_b128": mxu["ms"][128][0], "bound_ms_b128": mxu["ms"][128][1][0],
         "dense_ms_same_store": mxu["dense_ms"],
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches,

@@ -1,5 +1,5 @@
 // Score arithmetic shared by the phase-1 kernels (dense_phase1.cu,
-// bitplane_phase1.cu), for Hopper (sm_90a).
+// bitplane_phase1.cu, mxu_phase1.cu), for Hopper (sm_90a).
 //
 // The plain PyTorch versions divide once per (query, column):
 //   Tanimoto  s = c / max(qpop + pop - c, 1)   (0 when the denominator is 0)
@@ -19,8 +19,14 @@
 //     non-decreasing in c, so "score >= cutoff" is "c >= cmin[pop]" for a
 //     table built once per launch with the very divide above
 //     (build_cmin_table): the counts are the plain version's by construction.
-// Both rest on c <= min(qpop, pop), which holds whenever qpop and pop are the
-// popcounts of the words that were intersected.
+//   * the score depends on (c, pop) only through the rational c / d with
+//     d = max(qpop, 1) + pop - c, so among the fractions with denominators up
+//     to the largest d there is a smallest one, P / Q, whose rounded value
+//     reaches the cutoff, and "score >= cutoff" is "c * Q >= P * d" for every
+//     pop at once (tanimoto_threshold): one pair of integers per query where
+//     the table needs bits + 1 entries.
+// All three rest on c <= min(qpop, pop), which holds whenever qpop and pop are
+// the popcounts of the words that were intersected.
 //
 // The TPU kernel's own form of the first fact is
 // gpusimilarity_tpu/ops/pallas_bitplane.py::score_rational.
@@ -117,6 +123,69 @@ __device__ inline void build_cmin_table(uint16_t* table, int rows, int stride,
                        ? tanimoto_cmin(qpops[q], pop, cutoffs[q])
                        : kNever;
     }
+}
+
+// "score >= cutoff" as "c * q >= p * d" (see the header). p = 1, q = 0 is
+// satisfied by no count, p = 0, q = 1 by every one.
+struct RationalThreshold {
+    int p;
+    int q;
+    __device__ __forceinline__ void set_never() { p = 1; q = 0; }
+};
+
+// The smallest fraction c / d, 0 <= c <= d, 1 <= d <= max_den (at most 2048:
+// the products stay in int32), with fl(c / d) >= cutoff; every thread of the
+// block calls it with the same arguments and gets the same result. blockDim.x
+// is a power of two and s_num, s_den hold blockDim.x ints of shared memory.
+// Per denominator a binary search over the monotone rounded divide, then the
+// minimum by cross-multiplication. A cutoff <= 0 gives 0 / 1 and a NaN cutoff
+// or one above 1 "never".
+__device__ inline RationalThreshold tanimoto_threshold(float cutoff, int max_den,
+                                                       int* s_num, int* s_den) {
+    RationalThreshold th;
+    if (cutoff <= 0.f) {
+        th.p = 0;
+        th.q = 1;
+        return th;
+    }
+    // a / b < c / d for b, d >= 0 (a zero denominator is +infinity, as a
+    // numerator of 1 over it): a * d < c * b
+    int bn = 1;
+    int bd = 0;
+    for (int d = 1 + (int)threadIdx.x; d <= max_den; d += blockDim.x) {
+        const float df = (float)d;
+        int lo = 0;
+        int hi = d + 1;
+        while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (__fdiv_rn((float)mid, df) >= cutoff) {
+                hi = mid;
+            } else {
+                lo = mid + 1;
+            }
+        }
+        if (lo <= d && lo * bd < bn * d) {
+            bn = lo;
+            bd = d;
+        }
+    }
+    s_num[threadIdx.x] = bn;
+    s_den[threadIdx.x] = bd;
+    __syncthreads();
+    for (int step = blockDim.x >> 1; step > 0; step >>= 1) {
+        if ((int)threadIdx.x < step) {
+            const int on = s_num[threadIdx.x + step];
+            const int od = s_den[threadIdx.x + step];
+            if (on * s_den[threadIdx.x] < s_num[threadIdx.x] * od) {
+                s_num[threadIdx.x] = on;
+                s_den[threadIdx.x] = od;
+            }
+        }
+        __syncthreads();
+    }
+    th.p = s_num[0];
+    th.q = s_den[0];
+    return th;
 }
 
 // A table index from a stored popcount: a value outside [0, bits] (no

@@ -24,6 +24,8 @@ import torch
 
 from ..ops import fold as fold_ops
 from ..ops.bitplane import query_plane_indices
+from ..ops.bitplane_phase1 import KERNEL_MAX_PLANES
+from ..ops.dense_phase1 import KERNEL_MAX_WORDS
 from ..ops.scan import TANIMOTO, popcount_rows_np, scores_np
 from ..parallel import sharded
 from ..parallel.mesh import resolve_device
@@ -69,6 +71,28 @@ def rescore_rows(full_words, idx, query, similarity=TANIMOTO, alpha=1.0,
     return scores_np(rows, query[None, :], similarity, alpha, beta)[0]
 
 
+def check_kernel_width(device_type: str, scan_mode: str, device_bitcount: int) -> None:
+    """Refuse at load a library no kernel takes. On a CUDA device every
+    search launches a kernel and never falls back, so a row wider (after
+    folding) than the kernel of ``scan_mode`` takes would load and then fail
+    at its first search; raises ``ValueError`` naming the limit instead. The
+    CPU path runs the plain versions, which take any width."""
+    if device_type != "cuda":
+        return
+    if scan_mode == "dense" and device_bitcount > 32 * KERNEL_MAX_WORDS:
+        raise ValueError(
+            f"a dense library of {device_bitcount} bits a row on the device is "
+            f"wider than the dense kernel takes ({32 * KERNEL_MAX_WORDS} bits): "
+            "fold it further"
+        )
+    if scan_mode == "bitplane" and device_bitcount > KERNEL_MAX_PLANES:
+        raise ValueError(
+            f"a bitplane library of {device_bitcount} planes on the device is "
+            f"more than the bitplane kernel takes ({KERNEL_MAX_PLANES} planes): "
+            "fold it further"
+        )
+
+
 class FingerprintDB:
     """One fingerprint library resident on one device."""
 
@@ -88,7 +112,9 @@ class FingerprintDB:
         ``fold_factor`` is rounded up to a divisor of the word count; a
         folded library keeps ``data``'s full-width rows on the host for the
         exact rescore. ``device`` defaults to the card and raises without
-        one; ``device="cpu"`` runs the plain versions on the host."""
+        one; ``device="cpu"`` runs the plain versions on the host. On the
+        card a library wider than its kernel takes is refused here
+        (:func:`check_kernel_width`), before any upload."""
         data.validate()
         if scan_mode not in ("dense", "bitplane"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
@@ -111,12 +137,14 @@ class FingerprintDB:
         self.fold_factor = fold_ops.round_fold_factor(
             self.word_count, int(fold_factor)
         )
+        check_kernel_width(self.device.type, scan_mode, self.device_bitcount)
         self._store: sharded.BitplaneStore | sharded.DenseStore | None = None
         self.upload()
 
     def upload(self) -> None:
         """Build the device store: a virtual library is generated on the
-        device, anything else is folded and transposed from its rows."""
+        device, anything else is folded and transposed from its rows; either
+        way slab by slab, so the library is never held twice."""
         if self._store is not None:
             return
         full, fold, dev = self._full_words, self.fold_factor, self.device
@@ -131,15 +159,11 @@ class FingerprintDB:
                 full, dev, fold_factor=fold, popless=self.popless
             )
         elif virtual:
-            self._store = sharded.build_bitplane_store(
-                synth.virtual_folded_rows(
-                    self._count, fold, self.word_count, full.seed, dev
-                )
+            self._store = synth.build_virtual_bitplane_store(
+                self._count, fold, self.word_count, full.seed, device=dev
             )
         else:
-            self._store = sharded.build_bitplane_store(
-                fold_ops.fold_words(full, fold), dev
-            )
+            self._store = sharded.build_bitplane_store(full, dev, fold_factor=fold)
 
     # ------------------------------------------------------------------ info
 

@@ -25,6 +25,9 @@ from .scan import TANIMOTO, TVERSKY, similarity_from_counts
 
 # selection block: 2048 columns = 64 plane words
 BLOCK_WORDS = 64
+# the longest plane list the kernel takes per query (its count fields have
+# at most 12 bits); the plain version takes any
+KERNEL_MAX_PLANES = 4095
 
 _LAUNCH_LOCK = threading.Lock()
 _launches = 0
@@ -130,8 +133,10 @@ def bitplane_phase1_kernel(planes, pops, plane_idx, query_pops, cutoffs,
             "planes and pops must be 16-byte aligned and the plane width a "
             "multiple of 4 for the kernel's loads"
         )
-    if p > 4095:
-        raise ValueError(f"plane bucket {p} > 4095 is not supported")
+    if p > KERNEL_MAX_PLANES:
+        raise ValueError(
+            f"plane bucket {p} > {KERNEL_MAX_PLANES} is not supported"
+        )
     fn, err, scratch_entries = _kernel_fn()
     tversky = int(similarity == TVERSKY)
     colmax = torch.empty((b, m), dtype=torch.float32, device=planes.device)

@@ -26,6 +26,9 @@ from .scan import TANIMOTO, TVERSKY, score_columns
 # the selection blocks the kernel takes: a power of two of whole 8-column
 # tiles of the tensor-core product (the plain version takes 1..MAX_BLOCK)
 KERNEL_MIN_BLOCK, MAX_BLOCK = 8, 256
+# the widest row the kernel takes: 64 packed words, 2048 bits (its integer
+# epilogue is proven to that width; the plain version takes any)
+KERNEL_MAX_WORDS = 64
 
 _LAUNCH_LOCK = threading.Lock()
 _launches = 0
@@ -114,7 +117,8 @@ def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
     checked by :func:`dense_phase1`: ``(block_max, counts)`` as
     :func:`dense_phase1_plain` returns them. ``words`` may be a column
     prefix of a wider store (its row stride is passed). Raises if
-    ``block`` is under :data:`KERNEL_MIN_BLOCK` or the launch fails."""
+    ``block`` is under :data:`KERNEL_MIN_BLOCK`, a row has more than
+    :data:`KERNEL_MAX_WORDS` words or the launch fails."""
     if words.device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {words.device}")
     if block < KERNEL_MIN_BLOCK:
@@ -122,6 +126,11 @@ def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
             f"the kernel needs a block of >= {KERNEL_MIN_BLOCK} columns, got {block}"
         )
     wf, n = words.shape
+    if wf > KERNEL_MAX_WORDS:
+        raise ValueError(
+            f"the kernel takes rows of at most {KERNEL_MAX_WORDS} words "
+            f"({32 * KERNEL_MAX_WORDS} bits), got {wf}"
+        )
     b = queries.shape[0]
     fn, err = _kernel_fn()
     block_max = torch.empty((b, n // block), dtype=torch.float32, device=words.device)

@@ -1,9 +1,9 @@
 """The integer epilogue of the phase-1 CUDA kernels, stated in plain PyTorch.
 
 The kernels (``csrc/dense_phase1.cu``, ``csrc/bitplane_phase1.cu``, through
-``csrc/phase1_epilogue.cuh``) do not divide per (query, column) for
-Tanimoto. They rely on two facts about the correctly rounded float32
-divide of :func:`~.scan.similarity_from_counts`, both consequences of its
+``csrc/mxu_phase1.cu``, through ``csrc/phase1_epilogue.cuh``) do not divide
+per (query, column) for Tanimoto. They rely on three facts about the correctly rounded float32
+divide of :func:`~.scan.similarity_from_counts`, all consequences of its
 being monotone:
 
 * for a fixed query and column popcount the score ``c / (qpop + pop - c)``
@@ -12,7 +12,13 @@ being monotone:
   (:func:`cutoff_threshold_table`);
 * the maximum of the rounded scores of a block is the rounded score of the
   block's largest rational ``c / den``, which integer cross-multiplication
-  finds exactly (:func:`rational_block_max`).
+  finds exactly (:func:`rational_block_max`);
+* the score depends on ``(c, pop)`` only through the rational ``c / d`` with
+  ``d = max(qpop, 1) + pop - c``, so one fraction ``P / Q`` per query, the
+  smallest with a denominator up to the largest ``d`` whose rounded value
+  reaches the cutoff, decides ``score >= cutoff`` for every ``pop`` at once
+  as ``c * Q >= P * d`` (:func:`tanimoto_threshold`; the matrix-product
+  kernel's count test, where 128 tables would not fit in shared memory).
 
 Nothing here runs on a serving path: the plain versions of the kernels
 divide per column. These functions exist so the CPU tests can hold the
@@ -45,6 +51,29 @@ def cutoff_threshold_table(qpop: int, cutoff: float, bits: int) -> torch.Tensor:
     )
     first = ok.to(torch.int32).argmax(dim=1).to(torch.int32)
     return torch.where(ok.any(dim=1), first, NEVER)
+
+
+def tanimoto_threshold(cutoff: float, max_den: int) -> tuple[int, int]:
+    """``(P, Q)``: the smallest fraction ``c / d`` with ``0 <= c <= d`` and
+    ``1 <= d <= max_den`` whose float32 quotient is ``>= cutoff``, found from
+    the definition with the plain version's divide. ``(0, 1)`` for a cutoff
+    ``<= 0`` (every count satisfies it) and ``(1, 0)`` when no fraction does
+    (a cutoff above 1, or NaN): ``c * Q >= P * d`` is then false for every
+    ``d >= 1``. For a query of ``qpop`` set bits over rows of ``bits`` bits,
+    ``max_den = max(qpop, 1) + bits`` covers every denominator."""
+    cut = torch.tensor(cutoff, dtype=torch.float32)
+    if cutoff <= 0:
+        return 0, 1
+    d = torch.arange(1, max_den + 1, dtype=torch.float32)[:, None]
+    c = torch.arange(0, max_den + 1, dtype=torch.float32)[None, :]
+    ok = ((c / d) >= cut) & (c <= d)
+    if not ok.any():
+        return 1, 0
+    first = ok.to(torch.int32).argmax(dim=1)
+    # fractions with denominators <= 2048 differ by > 2e-7: float64 orders them
+    value = torch.where(ok.any(dim=1), first.double() / d[:, 0].double(), 2.0)
+    best = int(value.argmin())
+    return int(first[best]), best + 1
 
 
 def rational_block_max(

@@ -10,9 +10,13 @@ the count of columns scoring >= the query's cutoff. The queries enter
 unpacked, :func:`query_bits`, in word-major order ``w*32 + b``.
 
 For CUDA tensors it launches the hand-written kernel ``csrc/mxu_phase1.cu``
-(int8 products with int32 sums, or bf16 with float32 sums) or raises; it
-never falls back. For CPU tensors it runs :func:`mxu_phase1_plain`, the
-plain PyTorch version of the same function, which the tests hold against
+or raises; it never falls back. The card multiplies packed bits directly
+(the binary tensor-core product), so the kernel packs the query bits back
+into words once per launch, takes the library words as they lie in the
+store, and stages every library tile once for up to 128 queries. The TPU
+kernel's choice between int8 and bf16 products has no counterpart there:
+``int8_mxu`` is kept for the callers that pass it and selects nothing. For
+CPU tensors it runs :func:`mxu_phase1_plain`, the plain PyTorch version of the same function, which the tests hold against
 the JAX Pallas kernel and which the kernel matches bit for bit on the card.
 No serving path calls it: the probe
 (``python -m gpusimilarity_tpu_torch.tools.probe_mxu``) measures whether it
@@ -95,8 +99,8 @@ def mxu_phase1_plain(
     qbits.float() @ bits`` (0/1 products and sums <= 1024 are exact in
     float32, and in TF32), scores as :func:`~.scan.similarity_from_counts`
     gives them, columns with ``shard_offset + col >= n_valid`` masked to
-    -inf, block maxima and counts. ``int8_mxu`` selects the kernel's product
-    type and changes no result, so the plain version ignores it.
+    -inf, block maxima and counts. ``int8_mxu`` (the TPU kernel's product
+    type) changes no result, so the plain version ignores it.
     """
     del int8_mxu
     b = qbits.shape[0]
@@ -132,11 +136,13 @@ def _kernel_fn():
         fn = lib.gpusim_mxu_phase1
         ptr = ctypes.c_void_p
         ll, i32 = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [ll, ll, i32, i32, ll, ll, i32, i32, ptr]
+        fn.argtypes = [ptr] * 9 + [ll, ll, i32, i32, ll, ll, i32, ptr]
         fn.restype = ctypes.c_int
+        lib.gpusim_mxu_scratch_words.argtypes = [i32]
+        lib.gpusim_mxu_scratch_words.restype = i32
         lib.gpusim_error_string.argtypes = [ctypes.c_int]
         lib.gpusim_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.gpusim_error_string)
+        _FN = (fn, lib.gpusim_error_string, lib.gpusim_mxu_scratch_words)
     return _FN
 
 
@@ -146,13 +152,18 @@ def mxu_phase1_kernel(words, pops, qbits, query_pops, cutoffs, alpha_beta,
     """``csrc/mxu_phase1.cu`` on CUDA tensors already checked by
     :func:`mxu_phase1`: one launch per 128 queries, ``(block_max, counts)``
     as :func:`mxu_phase1_plain` returns them. ``words`` may be a column
-    prefix of a wider store (its row stride is passed). Raises if a launch
-    fails."""
+    prefix of a wider store (its row stride is passed). ``int8_mxu`` selects
+    nothing (the product is binary). Raises if a launch fails."""
+    del int8_mxu
     if words.device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {words.device}")
     n = words.shape[1]
     b = qbits.shape[0]
-    fn, err = _kernel_fn()
+    fn, err, scratch_words = _kernel_fn()
+    # scratch of the kernel's set-up pass: the queries packed back into words
+    # in fragment order, and each query's cutoff as a rational threshold
+    scratch = torch.empty(scratch_words(min(b, MAX_QUERIES)), dtype=torch.int32,
+                          device=words.device)
     block_max = torch.empty((b, n // block), dtype=torch.float32, device=words.device)
     counts = torch.zeros(b, dtype=torch.int64, device=words.device)
     stream = torch.cuda.current_stream(words.device).cuda_stream
@@ -162,9 +173,9 @@ def mxu_phase1_kernel(words, pops, qbits, query_pops, cutoffs, alpha_beta,
             words.data_ptr(), pops.data_ptr(), qbits[q0:q1].data_ptr(),
             query_pops[q0:q1].data_ptr(), cutoffs[q0:q1].data_ptr(),
             alpha_beta.data_ptr(), block_max[q0:q1].data_ptr(),
-            counts[q0:q1].data_ptr(), n, words.stride(0), q1 - q0, block,
-            int(n_valid), int(shard_offset), int(similarity == TVERSKY),
-            int(bool(int8_mxu)), stream,
+            counts[q0:q1].data_ptr(), scratch.data_ptr(), n, words.stride(0),
+            q1 - q0, block, int(n_valid), int(shard_offset),
+            int(similarity == TVERSKY), stream,
         )
         if rc != 0:
             raise RuntimeError(

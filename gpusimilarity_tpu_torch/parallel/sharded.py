@@ -62,8 +62,13 @@ SELECT_BLOCK_COLS = 32 * BLOCK_WORDS
 DENSE_BLOCK_COLS = 256
 NEG_INF = float("-inf")
 _POP_CHUNK_ROWS = 1 << 22
-# dense upload slab: rows folded on the host and transposed on the device
+# upload slab of both stores: rows folded on the host and transposed on the
+# device (a multiple of 32, so a bitplane slab fills whole plane words)
 _SLAB_ROWS = 1 << 21
+# dense phase 2 rescores its candidate columns in (query, block) chunks whose
+# gathered words stay under this many bytes (its temporaries are a few times
+# the chunk's (queries, columns) int32, within the same order)
+_PHASE2_CHUNK_BYTES = 1 << 30
 
 
 @dataclass(frozen=True)
@@ -90,28 +95,78 @@ def plan_bitplane_layout(n: int) -> int:
     return -(-max(n, 1) // SELECT_BLOCK_COLS) * SELECT_BLOCK_COLS
 
 
-def build_bitplane_store(
-    packed_rows, device: torch.device | str | None = None
-) -> BitplaneStore:
-    """Build a store from packed rows: numpy ``uint32 (N, W)`` (uploaded
-    to ``device``, the card unless told otherwise) or an int32 tensor
-    already on its device. The transpose runs on the device."""
-    if isinstance(packed_rows, np.ndarray):
-        rows = torch.from_numpy(
-            np.ascontiguousarray(packed_rows, dtype=np.uint32).view(np.int32)
-        ).to(resolve_device(device))
-    else:
-        rows = packed_rows
-        if rows.dtype != torch.int32 or rows.dim() != 2:
-            raise ValueError("packed rows must be int32 (N, W)")
-    n, w = rows.shape
+def empty_bitplane_store(n: int, bitcount: int, device: torch.device) -> BitplaneStore:
+    """A store of ``n`` rows with every plane and popcount zero, for
+    :func:`fill_bitplane_slab` to fill."""
     n_padded = plan_bitplane_layout(n)
-    planes = planes_from_rows(rows, n_padded, extra_planes=1)
-    pops = torch.zeros(n_padded, dtype=torch.int16, device=rows.device)
-    for lo in range(0, n, _POP_CHUNK_ROWS):
-        hi = min(n, lo + _POP_CHUNK_ROWS)
-        pops[lo:hi] = popcount_rows(rows[lo:hi]).to(torch.int16)
-    return BitplaneStore(planes=planes, popcounts=pops, n_valid=n, bitcount=32 * w)
+    return BitplaneStore(
+        planes=torch.zeros((bitcount + 1, n_padded // 32), dtype=torch.int32,
+                           device=device),
+        popcounts=torch.zeros(n_padded, dtype=torch.int16, device=device),
+        n_valid=n, bitcount=bitcount,
+    )
+
+
+def fill_bitplane_slab(store: BitplaneStore, row0: int, rows: torch.Tensor) -> None:
+    """Write packed rows ``int32 (m, W)`` on the store's device into columns
+    ``[row0, row0 + m)`` of ``store``, in place: their plane words (``row0``
+    a multiple of 32; a slab that ends inside a word leaves that word's other
+    bits zero, so only the last slab may) and their popcounts."""
+    m, w = rows.shape
+    if row0 % 32 or 32 * w != store.bitcount:
+        raise ValueError("a slab starts on a plane word and has the store's width")
+    words = -(-m // 32)
+    store.planes[:32 * w, row0 // 32:row0 // 32 + words] = planes_from_rows(
+        rows, 32 * words
+    )
+    store.popcounts[row0:row0 + m] = popcount_rows(rows).to(torch.int16)
+
+
+def build_bitplane_store(
+    packed_rows,
+    device: torch.device | str | None = None,
+    fold_factor: int = 1,
+) -> BitplaneStore:
+    """Build a store from packed rows ``(N, W)``: numpy ``uint32`` (an
+    array, a memory map or a lazy :class:`~..utils.synth.VirtualWords`)
+    uploaded to ``device`` (the card unless told otherwise), or an int32
+    tensor already on its device.
+
+    Rows stream in slabs of 2Mi: the planes are allocated once, then each
+    slab is read, OR-folded (:func:`~..ops.fold.fold_words`, on the host for
+    numpy rows), uploaded, transposed into its plane words on the device and
+    dropped, so the device never holds the rows beside the planes and the
+    host never copies a memory map whole."""
+    n, w = packed_rows.shape
+    if w % fold_factor:
+        raise ValueError(f"fold factor {fold_factor} does not divide {w} words")
+    on_device = isinstance(packed_rows, torch.Tensor)
+    if on_device:
+        if packed_rows.dtype != torch.int32 or packed_rows.dim() != 2:
+            raise ValueError("packed rows must be int32 (N, W)")
+        device = packed_rows.device
+    else:
+        device = resolve_device(device)
+    store = empty_bitplane_store(n, 32 * (w // fold_factor), device)
+    for s in range(0, n, _SLAB_ROWS):
+        fill_bitplane_slab(
+            store, s, _folded_slab(packed_rows, s, min(n, s + _SLAB_ROWS),
+                                   fold_factor, device),
+        )
+    return store
+
+
+def _folded_slab(packed_rows, s: int, e: int, fold_factor: int, device) -> torch.Tensor:
+    """Rows ``[s, e)`` of a store build's source, OR-folded, as int32 on
+    ``device``: folded there when the source is a tensor, on the host before
+    the upload when it is numpy."""
+    if isinstance(packed_rows, torch.Tensor):
+        return fold_ops.fold_words(packed_rows[s:e], fold_factor)
+    rows = np.asarray(packed_rows[s:e], dtype=np.uint32)
+    folded = np.ascontiguousarray(fold_ops.fold_words(rows, fold_factor))
+    if not folded.flags.writeable:  # a slab of a read-only memory map
+        folded = folded.copy()
+    return torch.from_numpy(folded.view(np.int32)).to(device)
 
 
 def bitplane_local_topk(
@@ -263,13 +318,7 @@ def build_store(
     )
     for s in range(0, n, _SLAB_ROWS):
         e = min(n, s + _SLAB_ROWS)
-        if on_device:
-            folded = fold_ops.fold_words(packed_rows[s:e], fold_factor)
-        else:
-            rows = np.asarray(packed_rows[s:e], dtype=np.uint32)
-            folded = np.ascontiguousarray(fold_ops.fold_words(rows, fold_factor))
-            folded = torch.from_numpy(folded.view(np.int32)).to(device)
-        words[:, s:e] = folded.T
+        words[:, s:e] = _folded_slab(packed_rows, s, e, fold_factor, device).T
     pops = None if popless else dense_popcounts(words)
     return DenseStore(words=words, popcounts=pops, n_valid=n)
 
@@ -291,9 +340,10 @@ def dense_local_topk(
 
     Phase 1 (the kernel) gives per-block maxima and counts. One direct
     lowest-index top-k picks the k best blocks, and phase 2 rescores their
-    columns exactly with plain tensor ops. Exact, ties included: a column
-    outside the selected blocks is outranked, in (score, lowest index)
-    order, by each selected block's best column, and there are k of them.
+    columns exactly with plain tensor ops, in chunks of bounded size.
+    Exact, ties included: a column outside the selected blocks is
+    outranked, in (score, lowest index) order, by each selected block's best
+    column, and there are k of them.
     """
     words, pops = store.words, store.popcounts
     dev = words.device
@@ -308,17 +358,43 @@ def dense_local_topk(
     k_blocks = min(k, n_blocks)
     _, selb = topk_lowest_index(block_max, k_blocks)
     selb = torch.sort(selb, dim=-1).values  # (B, k_blocks), ascending
-    cand = words.view(wf, n_blocks, block)[:, selb].reshape(wf, b, -1)
-    cand_pops = (
-        None if pops is None else pops.view(n_blocks, block)[selb].reshape(b, -1)
-    )
-    s = score_columns(
-        cand, cand_pops, queries, query_pops, similarity, alpha, beta
-    )
-    cols = (selb[:, :, None] * block + torch.arange(block, device=dev)).reshape(b, -1)
-    s = torch.where(cols < store.n_valid, s, NEG_INF)
-    vals, idx = _topk_padded(s, cols, k)
-    return vals, idx, counts
+
+    # Phase 2 in (query, block-group) chunks of at most `budget` blocks, so
+    # the gathered words stay under _PHASE2_CHUNK_BYTES whatever B and k
+    # (k = 131,072 blocks at B = 64 would gather 69 GB at once). Each chunk's
+    # columns merge into the running per-query top-k; the keys of
+    # topk_lowest_index are distinct, so the merge returns exactly the top-k
+    # of all candidates at any chunk size. One chunk covers the batch at
+    # serving shapes (B = 32, k = 2048: 0.5 GB).
+    budget = max(1, _PHASE2_CHUNK_BYTES // (wf * block * 4))
+    q_step = max(1, min(b, budget // k_blocks))
+    kb_step = k_blocks if q_step * k_blocks <= budget else budget
+    offsets = torch.arange(block, device=dev)
+    out = []
+    for q0 in range(0, b, q_step):
+        q1 = min(b, q0 + q_step)
+        best = None
+        for j0 in range(0, k_blocks, kb_step):
+            sel = selb[q0:q1, j0:j0 + kb_step]
+            cand = words.view(wf, n_blocks, block)[:, sel].reshape(wf, q1 - q0, -1)
+            cand_pops = (
+                None if pops is None
+                else pops.view(n_blocks, block)[sel].reshape(q1 - q0, -1)
+            )
+            s = score_columns(
+                cand, cand_pops, queries[q0:q1], query_pops[q0:q1], similarity,
+                alpha, beta,
+            )
+            cols = (sel[:, :, None] * block + offsets).reshape(q1 - q0, -1)
+            s = torch.where(cols < store.n_valid, s, NEG_INF)
+            if best is not None:
+                s, cols = torch.cat([best[0], s], dim=1), torch.cat([best[1], cols], dim=1)
+            last = j0 + kb_step >= k_blocks
+            best = _topk_padded(s, cols, k if last else min(k, s.shape[1]))
+        out.append(best)
+    if len(out) == 1:
+        return (*out[0], counts)
+    return (torch.cat([v for v, _ in out]), torch.cat([i for _, i in out]), counts)
 
 
 def dense_full_scan_topk(

@@ -1,13 +1,14 @@
 """Measure the matrix-product scan (kernel 3) against the popcount kernels
 on one card (twin of ``tools/probe_mxu.py``)::
 
-    python -m gpusimilarity_tpu_torch.tools.probe_mxu [--rows N] [--batches 1,32,128]
+    python -m gpusimilarity_tpu_torch.tools.probe_mxu [--rows N] [--batches 1,32,64,128]
 
 Does the tensor-core reformulation ``popcount(a & b) = <bits(a), bits(b)>``
 pay? The probe builds an unfolded dense store of ``--rows`` random 1024-bit
 rows on the card and times, per batch size, :func:`~..ops.mxu_phase1.
-mxu_phase1` in int8 and bf16 and the dense popcount scan
-:func:`~..ops.dense_phase1.dense_phase1` on the same store; then frees it,
+mxu_phase1` (up to 128 queries a pass over the store) and the dense popcount
+scan :func:`~..ops.dense_phase1.dense_phase1` (32 queries a pass) on the same
+store; then frees it,
 builds a bitplane store of the same row count and times
 :func:`~..ops.bitplane_phase1.bitplane_phase1_batched` for queries of
 ``--qpop`` set bits. The two stores are different layouts, so the comparison
@@ -16,10 +17,10 @@ is the cost of one batch, not of one byte.
 Times are medians of ``--repeats`` calls, each between two CUDA events;
 the first call (which builds the kernel) is timed apart as ``compile_s``.
 Each configuration prints one JSON line, with the least time the card could
-take (``bound_ms``: the larger of the bytes over 3.35 TB/s and the
-tensor-core operations over their peak: int8 or bf16 for the matrix product,
-an H100 SXM's data-sheet rates at 700 W, and for the dense scan's binary
-product the rate ``tools/probe_b1.py`` measured). The card is the default; without one
+take (``bound_ms``: the larger of the bytes over 3.35 TB/s, an H100 SXM's
+data-sheet rate at 700 W, and the bit operations of the binary tensor-core
+product over the rate ``tools/probe_b1.py`` measured: both kernels' work done
+the card's best way). The card is the default; without one
 the probe raises. ``--cpu_only`` runs the plain versions on the host, for
 the tests: its times are host times of the plain code, not a device's.
 """
@@ -44,50 +45,50 @@ from ..parallel.sharded import DENSE_BLOCK_COLS, build_bitplane_store, build_sto
 
 # Enamine REAL 2/12, the reference's unfolded configuration
 DEFAULT_ROWS = 113_335_291
-# NVIDIA H100 SXM data sheet, dense, at a 700 W power limit
+# NVIDIA H100 SXM data sheet, at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12}
-# The binary tensor-core product (mma.sync m16n8k256 b1 and.popc) has no rate
-# in the data sheet. This one is MEASURED: tools/probe_b1.py on an NVIDIA H100
-# 80GB HBM3 at a 700.00 W power limit, 1.40e11 warp instructions a second over
-# 132 SMs, 2 * 16 * 8 * 256 bit operations each.
-PEAK_OPS_PER_S["b1"] = 9.19e15
+# The binary tensor-core product (mma.sync m16n8k256 b1 and.popc), the one
+# product the kernels issue, has no rate in the data sheet. This one is
+# MEASURED: tools/probe_b1.py on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit, 1.40e11 warp-wide products a second over 132 SMs, 2 * 16 * 8 * 256 bit
+# operations each.
+PEAK_OPS_PER_S = {"b1": 9.19e15}
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=DEFAULT_ROWS)
-    ap.add_argument("--batches", type=str, default="1,32,128")
+    ap.add_argument("--batches", type=str, default="1,32,64,128")
     ap.add_argument("--bw", type=int, default=DENSE_BLOCK_COLS,
                     help="selection block width of the dense scans")
     ap.add_argument("--qpop", type=int, default=50,
                     help="set bits of each bitplane query")
     ap.add_argument("--repeats", type=int, default=7)
     ap.add_argument("--skip_bitplane", action="store_true")
-    ap.add_argument("--int8", type=str, default="1,0",
-                    help="comma list: 1 = int8 tensor cores, 0 = bf16")
     ap.add_argument("--cpu_only", action="store_true",
                     help="run the plain versions on the host (tests only)")
     return ap.parse_args(argv)
 
 
-def bound(bytes_moved: float, ops: float = 0.0, kind: str = "int8"):
+def bound(bytes_moved: float, b1_ops: float = 0.0):
     """``(bound_ms, bound_by)``: the larger of bytes over the memory rate
-    and ``ops`` over the tensor-core peak of ``kind`` (``"b1"``: the measured
-    rate of the binary product, named so in ``bound_by``)."""
+    and ``b1_ops`` bit operations over the measured rate of the binary
+    tensor-core product (named ``"b1 operations"`` in ``bound_by``)."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S
-    by_ops = ops / PEAK_OPS_PER_S[kind]
+    by_ops = b1_ops / PEAK_OPS_PER_S["b1"]
     if by_ops > by_bytes:
-        return by_ops * 1e3, f"{kind} operations" if kind == "b1" else "operations"
+        return by_ops * 1e3, "b1 operations"
     return by_bytes * 1e3, "bytes"
 
 
-def mxu_bound(n: int, b: int, block: int, int8: bool):
+def mxu_bound(n: int, b: int, block: int):
     """Kernel 3 over ``n`` columns: 128 B of words and a 2-byte popcount
-    per column, the query bits, metadata and outputs once; 2 * b * 1024
-    operations per column."""
+    per column, the query bits, metadata and outputs once; 2 * b * 1024 bit
+    operations per column over the measured rate of the binary tensor-core
+    product, the card's best way to this product (the int8 product the TPU
+    kernel uses would take 4.6 times as long here)."""
     moved = n * (WORDS * 4 + 2) + b * (WORDS * 32 + 12) + b * (n // block) * 4 + b * 8
-    return bound(moved, 2.0 * b * WORDS * 32 * n, "int8" if int8 else "bf16")
+    return bound(moved, 2.0 * b * WORDS * 32 * n)
 
 
 def dense_bound(n: int, wf: int, b: int, block: int):
@@ -96,7 +97,7 @@ def dense_bound(n: int, wf: int, b: int, block: int):
     bit) over the measured rate of the binary tensor-core product."""
     moved = n * (wf * 4 + 2) + b * (wf * 4 + 12)
     ops = 2.0 * b * 32 * wf * n
-    return bound(moved + b * (n // block) * 4 + b * 8, ops, "b1")
+    return bound(moved + b * (n // block) * 4 + b * 8, ops)
 
 
 def bitplane_bound(plane_idx: np.ndarray, m: int, b: int):
@@ -153,8 +154,8 @@ def _record(kernel, device, n, b, p50, first_s, bound_ms_by, **extra):
 
 
 def probe_dense(args, device, name):
-    """Kernel 3 (each dtype) and kernel 2 on one unfolded dense store, per
-    batch; yields one record per configuration."""
+    """Kernel 3 and kernel 2 on one unfolded dense store, per batch; yields
+    one record per configuration."""
     n = args.rows
     gen = torch.Generator(device=device).manual_seed(0)
     store = build_store(random_words((n, WORDS), device, gen))
@@ -170,15 +171,14 @@ def probe_dense(args, device, name):
     bw = args.bw
     for b in batches:
         cut = torch.zeros(b, dtype=torch.float32, device=device)
-        for int8 in (x == "1" for x in args.int8.split(",")):
-            def run():
-                return mxu_phase1(words, pops, qbits[:b], qpops[:b], cut, ab, 0,
-                                  bw, n, TANIMOTO, int8)
 
-            first = _first_call_s(run, device)
-            yield _record("mxu", name, n, b, time_ms(run, device, args.repeats),
-                          first, mxu_bound(words.shape[1], b, bw, int8),
-                          int8=int8, bw=bw)
+        def run():
+            return mxu_phase1(words, pops, qbits[:b], qpops[:b], cut, ab, 0, bw,
+                              n, TANIMOTO)
+
+        first = _first_call_s(run, device)
+        yield _record("mxu", name, n, b, time_ms(run, device, args.repeats),
+                      first, mxu_bound(words.shape[1], b, bw), bw=bw)
 
         def run_dense():
             return dense_phase1(words, pops, qt[:b], qpops[:b], cut, ab, n, bw)
@@ -220,8 +220,8 @@ def probe_bitplane(args, device, name):
 
 
 def run(args, device):
-    """Every configuration's record, in order: per batch kernel 3 in each
-    dtype then kernel 2, then kernel 1 per batch. The dense store is freed
+    """Every configuration's record, in order: per batch kernel 3 then
+    kernel 2, then kernel 1 per batch. The dense store is freed
     before the bitplane store is built."""
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     yield from probe_dense(args, device, name)

@@ -27,7 +27,13 @@ from ..ops import fold as fold_ops
 from ..ops.bitplane import shr, wrap_int32
 from ..ops.scan import popcount_rows, popcount_rows_np
 from ..parallel.mesh import resolve_device
-from ..parallel.sharded import DenseStore, plan_store_layout
+from ..parallel.sharded import (
+    BitplaneStore,
+    DenseStore,
+    empty_bitplane_store,
+    fill_bitplane_slab,
+    plan_store_layout,
+)
 
 #: rows per cluster (shared sparse core pattern)
 CLUSTER_ROWS = 256
@@ -257,8 +263,9 @@ def virtual_folded_rows(
 ) -> torch.Tensor:
     """The first ``n_rows`` virtual rows OR-folded, int32 ``(n_rows,
     word_count // fold)`` on ``device``, generated in steps of 1Mi rows so
-    the full width never exists whole. ``build_bitplane_store`` takes it
-    for a folded virtual bitplane library."""
+    the full width never exists whole: the folded library as plain rows,
+    for the oracles of the tests and the smoke run (the stores generate
+    their slabs themselves)."""
     wf = word_count // fold_factor
     device = resolve_device(device)
     out = torch.empty((n_rows, wf), dtype=torch.int32, device=device)
@@ -301,6 +308,30 @@ def build_virtual_dense_store(
         if pops is not None:
             pops[lo:hi] = popcount_rows(folded).to(torch.int16)
     return DenseStore(words=words, popcounts=pops, n_valid=n_rows)
+
+
+def build_virtual_bitplane_store(
+    n_rows: int,
+    fold_factor: int,
+    word_count: int = 32,
+    seed: int = 0,
+    device: torch.device | str | None = None,
+) -> BitplaneStore:
+    """Generate the folded virtual library directly on the device as a
+    bitplane store (twin of ``build_virtual_bitplane_store``): the planes
+    are allocated once, then each step makes 1Mi full-width rows, OR-folds
+    them, transposes them into their plane words and drops them, so the
+    rows never exist whole beside the planes."""
+    if word_count % fold_factor:
+        raise ValueError("fold factor must divide the word count")
+    device = resolve_device(device)
+    store = empty_bitplane_store(n_rows, 32 * (word_count // fold_factor), device)
+    for lo in range(0, n_rows, _GEN_ROWS):
+        hi = min(n_rows, lo + _GEN_ROWS)
+        fill_bitplane_slab(store, lo, fold_ops.fold_words(
+            virtual_rows(lo, hi - lo, word_count, seed, device), fold_factor
+        ))
+    return store
 
 
 def pick_query_rows(

@@ -11,7 +11,10 @@ from gpusimilarity_tpu.ops import bitplane as jbp
 from gpusimilarity_tpu.parallel.mesh import make_mesh
 from gpusimilarity_tpu.parallel.sharded import build_bitplane_store as jax_store
 from gpusimilarity_tpu_torch.ops import bitplane as tbp
+from gpusimilarity_tpu_torch.ops.fold import fold_words
+from gpusimilarity_tpu_torch.ops.scan import popcount_rows
 from gpusimilarity_tpu_torch.parallel import sharded
+from gpusimilarity_tpu_torch.utils import synth as psynth
 from gpusimilarity_tpu_torch.utils.convert import (
     bitplane_store_from_jax,
     store_from_fingerprint_data,
@@ -95,3 +98,71 @@ def test_store_from_jax_equals_own_store(rng, n_devices):
     assert torch.equal(got.popcounts, own.popcounts)
     assert (got.n_valid, got.bitcount) == (own.n_valid, own.bitcount) == (10000, 1024)
     assert own.planes.shape == (1025, sharded.plan_bitplane_layout(10000) // 32)
+
+
+SLAB = 1024  # rows a slab of the streamed build holds in these tests
+
+
+def _build_streamed(source, n, fold, tmp_path):
+    """A bitplane store of the first ``n`` rows of virtual library 5 from one
+    kind of source, through the entry point that kind of source takes."""
+    words = psynth.VirtualWords(n, 32, seed=5)
+    if source == "virtual_on_device":
+        return psynth.build_virtual_bitplane_store(n, fold, 32, 5, device="cpu")
+    if source == "virtual_words":
+        rows = words
+    elif source == "numpy":
+        rows = words[:]
+    elif source == "memmap":
+        path = tmp_path / "rows.u32"
+        words[:].tofile(path)
+        rows = np.memmap(path, dtype=np.uint32, mode="r", shape=(n, 32))
+    else:
+        rows = torch.from_numpy(words[:].view(np.int32))
+    return sharded.build_bitplane_store(rows, "cpu", fold_factor=fold)
+
+
+@pytest.mark.parametrize("fold", [1, 4])
+@pytest.mark.parametrize(
+    "source", ["numpy", "memmap", "virtual_words", "tensor", "virtual_on_device"]
+)
+@pytest.mark.parametrize("n", [SLAB * 3 + 13, SLAB * 2])
+def test_streamed_bitplane_build_equals_whole_array_build(
+    source, fold, n, tmp_path, monkeypatch
+):
+    """The store is built slab by slab: planes and popcounts equal one
+    transpose of the whole folded array, from every kind of source, at row
+    counts on and off a 32-row word; and the transpose is never handed more
+    than one slab of rows (the whole library never sits beside its planes)."""
+    monkeypatch.setattr(sharded, "_SLAB_ROWS", SLAB)
+    monkeypatch.setattr(psynth, "_GEN_ROWS", SLAB)
+    handed = []
+    transpose = sharded.planes_from_rows
+
+    def counting(rows, n_cols, extra_planes=0):
+        handed.append(rows.shape[0])
+        return transpose(rows, n_cols, extra_planes)
+
+    monkeypatch.setattr(sharded, "planes_from_rows", counting)
+    store = _build_streamed(source, n, fold, tmp_path)
+    assert handed == [SLAB] * (n // SLAB) + [n % SLAB] * (n % SLAB > 0)
+
+    folded = torch.from_numpy(
+        np.ascontiguousarray(fold_words(psynth.VirtualWords(n, 32, 5)[:], fold)).view(np.int32)
+    )
+    n_cols = sharded.plan_bitplane_layout(n)
+    assert (store.n_valid, store.bitcount) == (n, 1024 // fold)
+    assert torch.equal(store.planes, tbp.planes_from_rows(folded, n_cols, extra_planes=1))
+    assert torch.equal(store.popcounts[:n], popcount_rows(folded).to(torch.int16))
+    assert (store.popcounts[n:] == 0).all() and store.popcounts.shape == (n_cols,)
+
+
+def test_bitplane_slab_must_start_on_a_plane_word():
+    store = sharded.empty_bitplane_store(100, 1024, torch.device("cpu"))
+    rows = torch.zeros((8, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="plane word"):
+        sharded.fill_bitplane_slab(store, 16, rows)
+    with pytest.raises(ValueError, match="width"):
+        sharded.fill_bitplane_slab(store, 32, rows[:, :8])
+    with pytest.raises(ValueError, match="does not divide"):
+        sharded.build_bitplane_store(np.zeros((8, 32), np.uint32), "cpu", fold_factor=5)

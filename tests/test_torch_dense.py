@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from gpusimilarity_tpu_torch.ops import dense_phase1 as ph1
+from gpusimilarity_tpu_torch.ops.fold import fold_words
 from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows_np
 from gpusimilarity_tpu_torch.parallel import sharded
 
@@ -237,6 +238,84 @@ def test_dense_local_topk_matches_jax_search_and_full_scan(jax_store, similarity
         chunk_cols=3000,
     )
     assert torch.equal(vals, ov) and torch.equal(idx, oi) and torch.equal(cnt, oc)
+
+
+@pytest.mark.parametrize(
+    "similarity,ab,popless",
+    [("tanimoto", (1.0, 1.0), False), ("tversky", (0.7, 0.3), False),
+     ("tanimoto", (1.0, 1.0), True)],
+    ids=["tanimoto", "tversky", "popless"],
+)
+@pytest.mark.parametrize("blocks_per_chunk", [1, 7, 300])
+def test_phase2_chunks_equal_the_unchunked_path(
+    jax_store, similarity, ab, popless, blocks_per_chunk, monkeypatch
+):
+    """Phase 2 walked in (query, block-group) chunks of one block, of a few
+    and of more than one query's blocks returns the values, indices and
+    counts of one chunk over the whole batch, bit for bit."""
+    words = jax_store[0]
+    st = sharded.build_store(words, "cpu", fold_factor=4, popless=popless)
+    q = np.concatenate([words[[3, 777, 19999]], words[[50]] ^ np.uint32(1 << 9),
+                        np.zeros((1, 32), np.uint32)])
+    qf = np.ascontiguousarray(fold_words(q, 4))
+    args = (st, torch.from_numpy(qf.view(np.int32)), torch.from_numpy(popcount_rows_np(qf)),
+            torch.from_numpy(np.float32([0.0, 0.2, 0.1, 0.3, 0.0])), 128, similarity, *ab)
+    block = 32
+    monkeypatch.setattr(sharded, "_PHASE2_CHUNK_BYTES", 1 << 40)
+    want = sharded.dense_local_topk(*args, block=block)
+    monkeypatch.setattr(sharded, "_PHASE2_CHUNK_BYTES",
+                        blocks_per_chunk * st.word_count * block * 4)
+    got = sharded.dense_local_topk(*args, block=block)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    full = sharded.dense_full_scan_topk(*args)
+    for g, w in zip(got, full):
+        assert torch.equal(g, w)
+
+
+def test_phase2_memory_stays_under_the_cap_at_the_largest_request(monkeypatch):
+    """The largest search the server admits (batch 64, return_count 10,000:
+    131,072 blocks fetched at fold 4) on a store of as many 8-column blocks:
+    no candidate tensor phase 2 asks for exceeds the cap, where one gather of
+    the whole batch would be 64 times 131,072 blocks; results stay exact."""
+    from gpusimilarity_tpu_torch.models.fingerprint_db import _k_bucket
+    from gpusimilarity_tpu_torch.ops.fold import overfetch_count
+
+    k_fetch, b, block, wf = 131_072, 64, 8, 1
+    n = k_fetch * block
+    assert _k_bucket(overfetch_count(10_000, 4), 1 << 30) == k_fetch
+    rng = np.random.default_rng(55)
+    words = torch.from_numpy(
+        rng.integers(0, 1 << 32, (wf, n), dtype=np.uint64).astype(np.uint32).view(np.int32))
+    st = sharded.DenseStore(words=words, popcounts=sharded.dense_popcounts(words),
+                            n_valid=n - 5)
+    q = words[:, :b].T.contiguous()
+    qp = popcount_rows_np(q.numpy().view(np.uint32))
+    cap = 1 << 22
+    monkeypatch.setattr(sharded, "_PHASE2_CHUNK_BYTES", cap)
+    # phase 1 in narrow column chunks: the plain version's temporaries are
+    # not what this test measures
+    monkeypatch.setattr(
+        sharded, "dense_phase1",
+        lambda *a: ph1.dense_phase1_plain(*a, chunk_cols=1 << 16),
+    )
+    asked = []
+    score = sharded.score_columns
+
+    def measuring(cand, cand_pops, *rest):
+        asked.append(cand.numel() * cand.element_size())
+        return score(cand, cand_pops, *rest)
+
+    monkeypatch.setattr(sharded, "score_columns", measuring)
+    vals, idx, cnt = sharded.dense_local_topk(
+        st, q, torch.from_numpy(qp), torch.zeros(b), k_fetch, block=block)
+    assert max(asked) <= cap and len(asked) == b * (k_fetch * wf * block * 4 // cap)
+    assert b * k_fetch * wf * block * 4 == 64 * cap  # what one gather would have taken
+    assert vals.shape == idx.shape == (b, k_fetch) and cnt.tolist() == [n - 5] * b
+    monkeypatch.setattr(sharded, "score_columns", score)
+    fv, fi, fc = sharded.dense_full_scan_topk(
+        st, q[:1], torch.from_numpy(qp[:1]), torch.zeros(1), k_fetch)
+    assert torch.equal(vals[:1], fv) and torch.equal(idx[:1], fi) and torch.equal(cnt[:1], fc)
 
 
 def test_fewer_blocks_than_k_keeps_every_block():

@@ -10,7 +10,10 @@ import torch
 
 from gpusimilarity_tpu.models import FingerprintDB as JaxDB
 from gpusimilarity_tpu.ops.scan import scores_np
-from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
+from gpusimilarity_tpu_torch.models.fingerprint_db import (
+    FingerprintDB,
+    check_kernel_width,
+)
 from gpusimilarity_tpu_torch.models.registry import (
     DatabaseRegistry,
     merge_results,
@@ -229,3 +232,105 @@ def test_search_runs_through_phase1_wrapper(library, monkeypatch):
     data, db, _ = library
     db.search_batch(_queries(data), k=20, dbkey="k")
     assert calls == [torch.Size([4, 64])]
+
+
+# (device type, scan mode, bits a row on the device, the limit its refusal names)
+WIDTH_CASES = {
+    "cuda_dense_2048": ("cuda", "dense", 2048, None),
+    "cuda_dense_2080": ("cuda", "dense", 2080, "2048 bits"),
+    "cuda_dense_8192": ("cuda", "dense", 8192, "2048 bits"),
+    "cuda_bitplane_4064": ("cuda", "bitplane", 4064, None),
+    "cuda_bitplane_4096": ("cuda", "bitplane", 4096, "4095 planes"),
+    "cpu_dense_8192": ("cpu", "dense", 8192, None),
+    "cpu_bitplane_8192": ("cpu", "bitplane", 8192, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDTH_CASES))
+def test_check_kernel_width_names_the_kernels_limit(name):
+    """On a CUDA device a row wider than the scan mode's kernel takes is
+    refused with the limit in the message, read from the kernel modules; the
+    CPU path keeps every width."""
+    from gpusimilarity_tpu_torch.ops import bitplane_phase1, dense_phase1
+
+    assert 32 * dense_phase1.KERNEL_MAX_WORDS == 2048
+    assert bitplane_phase1.KERNEL_MAX_PLANES == 4095
+    device_type, mode, bits, limit = WIDTH_CASES[name]
+    if limit is None:
+        check_kernel_width(device_type, mode, bits)
+    else:
+        with pytest.raises(ValueError, match=limit):
+            check_kernel_width(device_type, mode, bits)
+
+
+@pytest.mark.parametrize("scan_mode", ["dense", "bitplane"])
+def test_wide_library_is_refused_at_load_on_cuda_and_served_on_cpu(scan_mode, monkeypatch):
+    """A 4096-bit library: on a CUDA device the constructor raises before any
+    upload (this machine has no card, so reaching the upload would fail
+    otherwise); folded to what the kernel takes it passes the check; on the
+    CPU it loads and answers at full width."""
+    rng = np.random.default_rng(6)
+    data = random_fingerprint_data(rng, count=300, bitcount=4096, density=0.02, dbkey="w")
+    uploads = []
+    monkeypatch.setattr(FingerprintDB, "upload", lambda self: uploads.append(self.device))
+    with pytest.raises(ValueError, match="2048 bits|4095 planes"):
+        FingerprintDB(data, device="cuda", scan_mode=scan_mode)
+    assert uploads == []
+    FingerprintDB(data, device="cuda", scan_mode=scan_mode, fold_factor=2)
+    assert [d.type for d in uploads] == ["cuda"]
+    monkeypatch.undo()
+    db = FingerprintDB(data, device="cpu", scan_mode=scan_mode)
+    assert db.device_bitcount == 4096
+    r = db.search(data.packed_words()[7], k=3, dbkey="w", return_indices=True)
+    assert r.indices[0] == 7 and r.scores[0] == 1.0
+
+
+@pytest.mark.parametrize("virtual", [False, True], ids=["rows", "virtual"])
+def test_folded_bitplane_upload_streams_and_equals_the_folded_rows(virtual, monkeypatch):
+    """The engine's bitplane upload at fold 4 hands the store build the
+    full-width source (never a folded copy of the whole library) and builds
+    the store of the folded rows, slab by slab."""
+    from gpusimilarity_tpu_torch.ops.fold import fold_words
+    from gpusimilarity_tpu_torch.utils import synth as psynth
+    from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
+    from gpusimilarity_tpu_torch.utils.strings import ConstantStringTable
+
+    n = 3 * 512 + 77
+    monkeypatch.setattr(sharded, "_SLAB_ROWS", 512)
+    monkeypatch.setattr(psynth, "_GEN_ROWS", 512)
+    fps = psynth.VirtualFingerprints(n, 1024, 3)
+    data = FingerprintData(
+        dbkey="v", bitcount=1024,
+        fingerprints=fps if virtual else fps[:],
+        smiles=ConstantStringTable(b"C", n), ids=ConstantStringTable(b"V", n),
+    )
+    handed = []
+    transpose = sharded.planes_from_rows
+    monkeypatch.setattr(
+        sharded, "planes_from_rows",
+        lambda rows, *a, **k: handed.append(rows.shape) or transpose(rows, *a, **k),
+    )
+    db = FingerprintDB(data, device="cpu", fold_factor=4, scan_mode="bitplane")
+    assert handed == [(512, 8)] * 3 + [(77, 8)]
+    monkeypatch.setattr(sharded, "planes_from_rows", transpose)
+    folded = np.ascontiguousarray(fold_words(fps.words[:], 4))
+    want = sharded.build_bitplane_store(torch.from_numpy(folded.view(np.int32)))
+    assert torch.equal(db.store.planes, want.planes)
+    assert torch.equal(db.store.popcounts, want.popcounts)
+    assert (db.store.n_valid, db.store.bitcount) == (n, 256)
+
+
+def test_scale_tool_loads_and_searches_a_virtual_library_on_the_cpu(capsys):
+    """The tool behind the near-capacity bitplane run, at a small size on the
+    host: a virtual .tfsim through the registry resolves to fold 1, bitplane,
+    and its one search is exact against the tool's own full scan."""
+    import json
+
+    from gpusimilarity_tpu_torch.tools import scale_bitplane
+
+    rc = scale_bitplane.main(["--cpu_only", "--rows", "70001", "--k", "16"])
+    record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and record["exact_against_full_scan"] is True
+    assert (record["fold_factor"], record["scan_mode"], record["rows"]) == (1, "bitplane", 70001)
+    assert record["card"] == "cpu" and record["max_memory_allocated"] is None
+    assert 1 <= record["results"] <= 16 and record["approximate_count"] >= record["results"]

@@ -23,6 +23,7 @@ from gpusimilarity_tpu_torch.ops.epilogue import (
     NEVER,
     cutoff_threshold_table,
     rational_block_max,
+    tanimoto_threshold,
 )
 from gpusimilarity_tpu_torch.ops.scan import similarity_from_counts
 
@@ -91,6 +92,57 @@ def test_threshold_table_is_the_divide_on_a_sample_of_wide_rows(bits):
             by_divide = scores >= torch.tensor(cutoff, dtype=torch.float32)
             assert torch.equal(by_divide[reachable],
                                (grid >= cmin[:, None])[reachable]), (name, qpop)
+
+
+def _by_threshold(grid, pop, qpop, cutoff, bits):
+    """``score >= cutoff`` as the matrix-product kernel tests it: one
+    fraction P / Q per query, ``c * (P + Q) >= P * pop + P * max(qpop, 1)``
+    in float32, every value below 2**24."""
+    qden = max(qpop, 1)
+    p, q = tanimoto_threshold(cutoff, qden + bits)
+    assert 0 <= p <= max(q, 1) and q <= qden + bits and (p + q) * bits < 1 << 24
+    lhs = grid.to(torch.float32) * float(p + q)
+    rhs = float(p) * pop.to(torch.float32)[:, None] + float(p * qden)
+    assert rhs.max() < 1 << 24
+    return lhs >= rhs
+
+
+@pytest.mark.parametrize("name", sorted(CUTOFFS))
+def test_rational_threshold_is_the_divide_exhaustively_at_fold4(name):
+    """For every qpop, pop <= 256 and every reachable c the single fraction
+    of a query decides ``score >= cutoff`` as the per-column divide does."""
+    cutoff = CUTOFFS[name]
+    cut = torch.tensor(cutoff, dtype=torch.float32)
+    pop = torch.arange(FOLD4_BITS + 1, dtype=torch.int32)
+    for qpop in range(FOLD4_BITS + 1):
+        scores, grid, reachable = _grid_scores(qpop, FOLD4_BITS)
+        by_threshold = _by_threshold(grid, pop, qpop, cutoff, FOLD4_BITS)
+        assert torch.equal((scores >= cut)[reachable], by_threshold[reachable]), (name, qpop)
+
+
+@pytest.mark.parametrize("name", sorted(CUTOFFS))
+def test_rational_threshold_is_the_divide_at_1024_bits(name):
+    """The same at the matrix-product kernel's own width, for queries of 0,
+    1, 1024 and a seeded sample of popcounts."""
+    cutoff = CUTOFFS[name]
+    cut = torch.tensor(cutoff, dtype=torch.float32)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    pop = torch.arange(1025, dtype=torch.int32)
+    for qpop in [0, 1, 1024] + rng.integers(2, 1024, 4).tolist():
+        scores, grid, reachable = _grid_scores(qpop, 1024)
+        by_threshold = _by_threshold(grid, pop, qpop, cutoff, 1024)
+        assert torch.equal((scores >= cut)[reachable], by_threshold[reachable]), (name, qpop)
+
+
+def test_rational_threshold_edges():
+    assert tanimoto_threshold(0.0, 2048) == (0, 1)
+    assert tanimoto_threshold(-1.0, 2048) == (0, 1)
+    assert tanimoto_threshold(float("nan"), 2048) == (1, 0)
+    assert tanimoto_threshold(1.5, 2048) == (1, 0)
+    assert tanimoto_threshold(1.0, 2048) == (1, 1)
+    assert tanimoto_threshold(0.5, 2048) == (1, 2)
+    # the smallest positive score there is: 1 / max_den
+    assert tanimoto_threshold(1e-30, 2048) == (1, 2048)
 
 
 def test_scores_are_monotone_in_the_count_and_equal_jax():

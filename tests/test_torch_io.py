@@ -306,5 +306,6 @@ def test_probe_is_a_module_of_the_port():
     )
     assert proc.returncode == 0, proc.stderr
     for flag in ("--rows", "--batches", "--bw", "--qpop", "--repeats",
-                 "--skip_bitplane", "--int8", "--cpu_only"):
+                 "--skip_bitplane", "--cpu_only"):
         assert flag in proc.stdout
+    assert "--int8" not in proc.stdout  # the product is binary on the card

@@ -203,13 +203,14 @@ def test_probe_cpu_only_prints_one_json_line_per_configuration():
     )
     assert proc.returncode == 0, proc.stderr
     lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
-    kinds = [(r["kernel"], r["batch"], r.get("int8")) for r in lines]
+    kinds = [(r["kernel"], r["batch"], r["bound_by"]) for r in lines]
     assert kinds == [
-        ("mxu", 1, True), ("mxu", 1, False), ("dense", 1, None),
-        ("mxu", 4, True), ("mxu", 4, False), ("dense", 4, None),
-        ("bitplane", 1, None), ("bitplane", 4, None),
+        ("mxu", 1, "bytes"), ("dense", 1, "bytes"),
+        ("mxu", 4, "bytes"), ("dense", 4, "bytes"),
+        ("bitplane", 1, "bytes"), ("bitplane", 4, "bytes"),
     ]
     for r in lines:
+        assert "int8" not in r  # the product is binary: no dtype to choose
         assert r["rows"] == 4096 and r["device"] == "cpu"
         assert r["p50_ms"] > 0 and r["fps_per_chip"] > 0
 
@@ -229,14 +230,38 @@ def test_dense_bound_takes_the_larger_of_bytes_and_b1_operations():
     ms, by = probe_mxu.dense_bound(n, wf, 1024, block)
     assert by == "b1 operations"
     assert ms == pytest.approx(2.0 * 1024 * 256 * n / probe_mxu.PEAK_OPS_PER_S["b1"] * 1e3)
-    # the matrix-product kernel's bound keeps its own names
-    assert probe_mxu.mxu_bound(n, 128, block, True)[1] == "operations"
+
+
+@pytest.mark.parametrize("b", [1, 32, 64, 128])
+def test_mxu_bound_counts_the_binary_product_and_bytes_win_to_128(b):
+    """Kernel 3's bound is restated for the same work done the card's best
+    way: its bytes, or 2 * b * 1024 bit operations a column over the measured
+    rate of the binary tensor-core product. Bytes win at every batch a launch
+    takes; the product would only bound a batch of several hundred."""
+    from gpusimilarity_tpu_torch.tools import probe_mxu
+
+    n, block = 113_335_296, 256
+    ms, by = probe_mxu.mxu_bound(n, b, block)
+    moved = n * 130 + b * (1024 + 12) + b * (n // block) * 4 + b * 8
+    assert by == "bytes" and ms == pytest.approx(moved / 3.35e12 * 1e3)
+    ops_ms = 2.0 * b * 1024 * n / probe_mxu.PEAK_OPS_PER_S["b1"] * 1e3
+    assert ops_ms < ms and ops_ms == pytest.approx(0.02526 * b, rel=1e-3)
+    # the same bytes and operations as kernel 2 on this store, so one bound
+    assert ms == pytest.approx(probe_mxu.dense_bound(n, 32, b, block)[0], rel=1e-3)
+    if b == 128:
+        assert probe_mxu.mxu_bound(n, 1024, block)[1] == "b1 operations"
 
 
 # kernel cases on the card: (rows, n_valid, offset, queries, block,
 # similarity); tails shorter than a 256-column tile, every block width, one
-# and several 16-query tiles, and a batch over the 128 queries of a launch
+# and several 16-query tiles (64: four; 100: seven, the last one ragged), a
+# batch over the 128 queries of a launch, n_valid off a block boundary with
+# a shard offset
 CUDA_CASES = {
+    "b64_block256": (8192, 8192, 0, 64, 256, "tanimoto"),
+    "b100_block64_offset": (4160, 4000, 77, 100, 64, "tanimoto"),
+    "b100_block128_tversky": (4096, 3900, 0, 100, 128, "tversky"),
+    "b8_block64": (2112, 2035, 0, 8, 64, "tanimoto"),
     "b1_block256": (4096, 4096, 0, 1, 256, "tanimoto"),
     "b5_block64_tail": (1088, 1000, 0, 5, 64, "tanimoto"),
     "b17_block128_tversky": (4096, 4000, 0, 17, 128, "tversky"),
@@ -281,3 +306,38 @@ def test_kernel_matches_plain_on_cuda(name, int8_mxu, cuda_device):
     assert torch.equal(bmax.view(torch.int32), dbmax.view(torch.int32))
     assert torch.equal(cnt, dcnt)
     assert bmax[-1].max().item() == 0.0  # the zero query
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64, 100])
+@pytest.mark.parametrize("start", [0, 3], ids=["aligned", "unaligned"])
+def test_kernel_on_a_strided_prefix_on_cuda(b, start, cuda_device):
+    """A column window of a wider store (row stride over the column count;
+    off 16-byte alignment when it starts at column 3) against the plain
+    version and the dense kernel, cutoffs at, above and below 0 and at 1."""
+    rng = np.random.default_rng(100 * b + start)
+    words = _words(rng, 6000, 0.05)
+    queries = np.concatenate([words[:b - 1], np.zeros((1, 32), np.uint32)])
+    planar = _t(np.ascontiguousarray(words.T).view(np.int32), cuda_device)
+    pops = _t(popcount_rows_np(words).astype(np.int16), cuda_device)
+    cols = 5120
+    window = planar[:, start:start + cols]
+    assert window.stride(0) == 6000
+    args = (
+        window, pops[start:start + cols].contiguous(),
+        ph3.query_bits(_t(queries.view(np.int32), cuda_device)),
+        _t(popcount_rows_np(queries), cuda_device),
+        _t(np.resize(np.float32([0.0, 0.35, 1.0, -0.5]), b), cuda_device),
+        _t(np.float32([1.0, 1.0]), cuda_device), 0, 256, cols - 77, "tanimoto",
+    )
+    bmax, cnt = ph3.mxu_phase1(*args)
+    pbmax, pcnt = ph3.mxu_phase1_plain(*args)
+    dbmax, dcnt = ph2.dense_phase1(
+        args[0], args[1], _t(queries.view(np.int32), cuda_device), *args[3:6],
+        cols - 77, 256, "tanimoto",
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
+    assert torch.equal(cnt, pcnt)
+    assert torch.equal(bmax.view(torch.int32), dbmax.view(torch.int32))
+    assert torch.equal(cnt, dcnt)
