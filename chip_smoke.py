@@ -47,14 +47,28 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     side on a column prefix where the full width would take minutes);
 (p2) the breakdown of (p) for a dense fold-4 search;
 (f) the server with ``--fold 4`` (auto resolves dense) on (d)'s library,
-    checked by (e)'s rules;
+    checked by (e)'s rules, over HTTP and over the reference's socket
+    protocol (``--socket_name``);
 (g) one bitplane search at fold 4 on 113,335,291 virtual rows, checked by
-    (e)'s rules.
+    (e)'s rules;
+(h) the port's own entry points: a gzip ``.smi`` of 100,000 SMILES made by
+    string assembly from a seed, plus one bad line, through ``cli.createdb``
+    to ``.fsim`` and streamed to ``.tfsim``, ``cli.convertdb`` and
+    ``cli.mergedb``, the files checked (bad line dropped, rows, fingerprints
+    of a sample against ``smiles_to_fingerprint_bin``, both ``.tfsim`` equal,
+    twice the rows merged); then ``cli.server --socket_name
+    --http_interface`` on the built library, its merged twin and (d)'s
+    library: fingerprint self-queries over the socket, with a client
+    encoder written here, to one library and to several (checked against
+    the plain full scan and the reference's merge of the plain scans,
+    exactly), a wrong key, a corrupt record that must drop the connection;
+    the HTML UI, ``cli.search`` and the FDW; the socket round trip p50 and
+    the page time.
 
 The main path of each kernel is driven with its launch counter reset just
-before and read just after: the bitplane kernel in (c), (d) and (g), the
-dense kernel in (e) and (f) (the servers' counts come from ``/stats``), the
-matrix-product kernel in the probe of (m), which is the one entry point
+before and read just after: the bitplane kernel in (c), (d), (g) and (h),
+the dense kernel in (e) and (f) (the servers' counts come from ``/stats``),
+the matrix-product kernel in the probe of (m), which is the one entry point
 that runs it. Launches made in (b), (b2), (p), (p2) and (m) before the
 probe, to compare or profile, do not count. It prints the card's name and power limit, one JSON line describing
 the kernels, the seconds of each phase, and last
@@ -63,13 +77,16 @@ the kernels, the seconds of each phase, and last
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
+import gzip
 import json
 import os
 import signal
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -104,6 +121,7 @@ PLAIN_PREFIX_COLS = 1 << 27  # (b2): B=32 plain comparisons past the first
 PLAIN_PREFIX_MXU = 1 << 25  # (m): plain comparisons other than B=1 and B=32
 PLAIN_PREFIX_FORKS = 1 << 25  # (b2): the cases added where the kernel forks
 FOLD_CHECK_ROWS = 4_000_000  # (m): rows of the fold-8 and fold-2 stores
+SOCKET_NAME = "gpusim-smoke"  # (f), (h): in a temporary directory of the run
 
 PHASE_SECONDS: dict[str, float] = {}
 
@@ -553,74 +571,180 @@ def _get(port, path):
         return json.loads(r.read())
 
 
-def phase_server(device, n_rows, server_args=(), fold=1, tag="d",
-                 kernel="bitplane_phase1"):
-    """Serve a written .fsim through the CLI and check its answers; returns
-    the launches of ``kernel`` the server counted for them (from /stats,
-    zero when the server starts) and the number of requests."""
+def _qt_string(b: bytes) -> bytes:
+    return struct.pack(">I", len(b) + 1) + b + b"\0"
+
+
+def encode_socket_request(dbs, request_num, k, cutoff, fp: bytes) -> bytes:
+    """A request of the reference's socket protocol (QDataStream Qt_5_2, as
+    its front end writes it, ``gpusim_server.py:76-92``): the database
+    (name, key) pairs, the request number, k, the cutoff as a double and the
+    packed fingerprint."""
+    parts = [struct.pack(">i", len(dbs))]
+    for name, key in dbs:
+        parts += [_qt_string(name.encode()), _qt_string(key.encode())]
+    parts.append(struct.pack(">iid", request_num, k, cutoff))
+    parts.append(struct.pack(">I", len(fp)) + fp)
+    return b"".join(parts)
+
+
+def decode_socket_response(buf: bytes):
+    """``((request_num, approximate_count, smiles, ids, scores), bytes
+    used)``, or None while ``buf`` holds less than one response."""
+    pos = 0
+
+    def take(n):
+        nonlocal pos
+        if pos + n > len(buf):
+            raise EOFError
+        pos += n
+        return buf[pos - n:pos]
+
+    def string():
+        (n,) = struct.unpack(">I", take(4))
+        return take(n)[:-1].decode()
+
+    try:
+        request_num, count = struct.unpack(">ii", take(8))
+        (approx,) = struct.unpack(">Q", take(8))
+        smiles = [string() for _ in range(count)]
+        ids = [string() for _ in range(count)]
+        scores = list(struct.unpack(f">{count}d", take(8 * count)))
+    except EOFError:
+        return None
+    return (request_num, approx, smiles, ids, scores), pos
+
+
+class SocketClient:
+    """One connection to the server's Unix socket; requests in sequence."""
+
+    def __init__(self, path):
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        self.sock.settimeout(300)
+        self.sock.connect(str(path))
+        self.buf = b""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.sock.close()
+
+    def ask(self, payload: bytes):
+        """Send one request; its decoded response."""
+        self.sock.sendall(payload)
+        while True:
+            done = decode_socket_response(self.buf)
+            if done is not None:
+                self.buf = self.buf[done[1]:]
+                return done[0]
+            chunk = self.sock.recv(1 << 20)
+            check(bool(chunk), "the server closed the socket mid-response")
+            self.buf += chunk
+
+
+def server_rows(device, n_rows):
+    """(d)'s library: ``n_rows`` Morgan-density rows from a seed, and their
+    popcounts."""
     from gpusimilarity_tpu_torch.ops.scan import popcount_rows
-    from gpusimilarity_tpu_torch.utils.fsim import FingerprintData, write_fsim
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows = random_rows(n_rows, gen, device)
-    pops = popcount_rows(rows).to(torch.int16)
+    return rows, popcount_rows(rows).to(torch.int16)
+
+
+def write_server_library(device, n_rows, tmp) -> Path:
+    """Write (d)'s library once as ``smoke.fsim``: ids ``SMK<index>``, the
+    SMILES field ``C<index>``, dbkey ``smoke``. (d), (f) and (h) serve it."""
+    from gpusimilarity_tpu_torch.utils.fsim import FingerprintData, write_fsim
+
+    rows, _pops = server_rows(device, n_rows)
     fps = rows.cpu().numpy().view(np.uint8).reshape(n_rows, 128)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "smoke.fsim"
-        t0 = time.monotonic()
-        write_fsim(path, FingerprintData(
-            dbkey="smoke", bitcount=1024, fingerprints=fps,
-            smiles=[f"C{i}".encode() for i in range(n_rows)],
-            ids=[f"SMK{i:08d}".encode() for i in range(n_rows)],
-        ))
-        log(f"[{tag}] wrote {n_rows:,}-row .fsim in {time.monotonic() - t0:.2f}s")
-        port = _free_port()
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (str(ROOT), env.get("PYTHONPATH", "")) if p
-        )
-        t0 = time.monotonic()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server",
-             str(path), "--port", str(port), "--batch_window_ms", "50",
-             *server_args],
-            cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True,
-        )
-        lines: list[str] = []
-        ready = threading.Event()
+    path = Path(tmp) / "smoke.fsim"
+    t0 = time.monotonic()
+    write_fsim(path, FingerprintData(
+        dbkey="smoke", bitcount=1024, fingerprints=fps,
+        smiles=[f"C{i}".encode() for i in range(n_rows)],
+        ids=[f"SMK{i:08d}".encode() for i in range(n_rows)],
+    ))
+    log(f"[d] wrote {n_rows:,}-row .fsim in {time.monotonic() - t0:.2f}s")
+    return path
 
-        def pump():
-            for line in proc.stderr:
-                lines.append(line)
-                if "ready on" in line:
-                    ready.set()
 
-        threading.Thread(target=pump, daemon=True).start()
+def _port_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH", "")) if p
+    )
+    return env
+
+
+@contextlib.contextmanager
+def serving(paths, server_args, tag, socket_dir=None):
+    """Run ``python -m gpusimilarity_tpu_torch.cli.server`` on ``paths`` and
+    yield its HTTP port once it prints ``ready``; stop it on exit. Its
+    ``--socket_name`` socket goes in ``socket_dir`` (its ``TMPDIR``)."""
+    port = _free_port()
+    env = _port_env()
+    if socket_dir is not None:
+        env["TMPDIR"] = str(socket_dir)
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server",
+         *map(str, paths), "--port", str(port), *server_args],
+        cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True,
+    )
+    lines: list[str] = []
+    ready = threading.Event()
+
+    def pump():
+        for line in proc.stderr:
+            lines.append(line)
+            if "ready on" in line:
+                ready.set()
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        while not ready.wait(1.0):
+            check(proc.poll() is None, "server exited:\n" + "".join(lines[-30:]))
+            check(time.monotonic() - t0 < 600, "server not ready in 600 s")
+        log(f"[{tag}] server ready in {time.monotonic() - t0:.2f}s")
+        yield port
+    finally:
+        proc.send_signal(signal.SIGINT)
         try:
-            while not ready.wait(1.0):
-                check(proc.poll() is None,
-                      "server exited:\n" + "".join(lines[-30:]))
-                check(time.monotonic() - t0 < 600, "server not ready in 600 s")
-            log(f"[{tag}] server ready in {time.monotonic() - t0:.2f}s")
-            stats = _get(port, "/stats")
-            db_stats = stats["databases"]["smoke"]
-            log(f"[{tag}] /stats: fold {db_stats['fold_factor']}, scan mode "
-                f"{db_stats['scan_mode']}, {db_stats['device_bytes']:,} device bytes")
-            check(db_stats["fold_factor"] == fold, f"server fold {db_stats['fold_factor']}")
-            launches0 = stats["kernel_launches"][kernel]
-            count = _check_requests(port, rows, pops, device, fold, tag)
-            stats = _get(port, "/stats")
-            launches = stats["kernel_launches"][kernel] - launches0
-            log(f"[{tag}] answered {count} requests; server {kernel} launches "
-                f"{launches}; /stats searches {stats['searches']}")
-        finally:
-            proc.send_signal(signal.SIGINT)
-            try:
-                proc.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=30)
-        return launches, count
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def phase_server(device, path, n_rows, server_args=(), fold=1, tag="d",
+                 kernel="bitplane_phase1", socket_dir=None):
+    """Serve (d)'s written .fsim through the CLI and check its answers over
+    HTTP, and with ``socket_dir`` two over the reference's socket too;
+    returns the launches of ``kernel`` the server counted for them (from
+    /stats, zero when the server starts) and the number of requests."""
+    rows, pops = server_rows(device, n_rows)
+    args = ["--batch_window_ms", "50", *server_args]
+    if socket_dir is not None:
+        args += ["--socket_name", SOCKET_NAME]
+    with serving([path], args, tag, socket_dir) as port:
+        stats = _get(port, "/stats")
+        db_stats = stats["databases"]["smoke"]
+        log(f"[{tag}] /stats: fold {db_stats['fold_factor']}, scan mode "
+            f"{db_stats['scan_mode']}, {db_stats['device_bytes']:,} device bytes")
+        check(db_stats["fold_factor"] == fold, f"server fold {db_stats['fold_factor']}")
+        launches0 = stats["kernel_launches"][kernel]
+        count = _check_requests(port, rows, pops, device, fold, tag)
+        if socket_dir is not None:
+            count += _check_socket_requests(
+                Path(socket_dir) / SOCKET_NAME, rows, pops, device, fold, tag)
+        stats = _get(port, "/stats")
+        launches = stats["kernel_launches"][kernel] - launches0
+        log(f"[{tag}] answered {count} requests; server {kernel} launches "
+            f"{launches}; /stats searches {stats['searches']}")
+    return launches, count
 
 
 def _check_folded(tag, name, got_scores, got_idx, want_count, approx, full,
@@ -643,21 +767,62 @@ def _check_folded(tag, name, got_scores, got_idx, want_count, approx, full,
           f"{name}: approximate count {approx} != folded count {want_count}")
 
 
-def _check_requests(port, rows, pops, device, fold=1, tag="d"):
+def _check_answer(tag, what, rows, pops, q, k, cut, sim, ab, got, idx, approx,
+                  fold=1, self_row=None):
+    """(d)'s rules for one answer from (d)'s library (``idx``: the row of
+    each returned id): unfolded, the top-k scores and the count of the plain
+    full scan; folded, (e)'s rules (:func:`_check_folded`)."""
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import (
         full_scan_topk,
         popcount_rows,
         scores_np,
     )
+
+    cut_t = torch.tensor([cut], dtype=torch.float32, device=rows.device)
+    got = np.asarray(got, np.float32)
+    if fold == 1:
+        v, _i, c = full_scan_topk(rows, pops, q[None, :], k, cut_t, sim, *ab)
+        want = v[0][v[0] >= cut].cpu().numpy()
+        check(np.array_equal(got, want), f"{what} k={k}: scores differ from "
+              "the full scan")
+        check(approx == int(c[0]), "approximate count differs")
+        if self_row is not None:
+            check(got[0] == 1.0, "self-query not 1.0 at rank 0")
+    else:
+        folded = fold_words(rows, fold)
+        _v, _i, c = full_scan_topk(
+            folded, popcount_rows(folded), fold_words(q[None, :], fold), 1,
+            cut_t, sim, *ab,
+        )
+        full = scores_np(
+            rows[idx].cpu().numpy().view(np.uint32),
+            q.cpu().numpy().view(np.uint32), sim, *ab,
+        )
+        _check_folded(tag, f"{what} {sim} k={k}", got, idx, int(c[0]), approx,
+                      full, cut, self_row)
+    log(f"[{tag}] {what} {sim} k={k} cut={cut}: {len(got)} results, "
+        f"approximate_count {approx}, exact against "
+        + ("the full scan" if fold == 1 else "full-width rescore and the "
+           "folded full scan"))
+
+
+def _smoke_rows(tag, ids, smiles):
+    """Row indices of (d)'s library from returned ids, checked against the
+    returned SMILES field."""
+    idx = [int(cid[3:]) for cid in ids]
+    for i, cid, smi in zip(idx, ids, smiles):
+        check(cid == f"SMK{i:08d}" and smi == f"C{i}",
+              f"[{tag}] id {cid!r} and smiles {smi!r} disagree")
+    return idx
+
+
+def _check_requests(port, rows, pops, device, fold=1, tag="d"):
     from gpusimilarity_tpu_torch.serve.server import smiles_to_query_words
 
     n = rows.shape[0]
     rng = np.random.default_rng(SEED + 3)
     picks = [int(i) for i in rng.integers(0, n, 4)]
-    if fold > 1:
-        folded = fold_words(rows, fold)
-        fpops = popcount_rows(folded)
 
     def fp_form(i, k, cut, **extra):
         hexq = rows[i].cpu().numpy().view(np.uint8).tobytes().hex()
@@ -695,45 +860,40 @@ def _check_requests(port, rows, pops, device, fold=1, tag="d"):
     ask(4)
     for ri, ((q, form), reply) in enumerate(zip(requests, replies)):
         check(set(reply) >= {"approximate_count", "results"}, "reply shape")
-        sim = form.get("similarity", "tanimoto")
-        ab = (float(form.get("alpha", 1)), float(form.get("beta", 1)))
-        k, cut = int(form["return_count"]), float(form.get("similarity_cutoff", 0))
-        cut_t = torch.tensor([cut], dtype=torch.float32, device=device)
-        got = np.array([r[2] for r in reply["results"]], np.float32)
         check(all(len(r) == 3 and isinstance(r[0], str) and isinstance(r[1], str)
                   for r in reply["results"]), "result rows are [id, smiles, score]")
-        idx = [int(cid[3:]) for cid, _smi, _score in reply["results"]]
-        for i, (_cid, smi, _score) in zip(idx, reply["results"]):
-            check(smi == f"C{i}", "id and smiles disagree")
-        what = form.get("smiles") or "fp_hex"
-        if fold == 1:
-            v, _i, c = full_scan_topk(rows, pops, q[None, :], k, cut_t, sim, *ab)
-            want = v[0][v[0] >= cut].cpu().numpy()
-            check(np.array_equal(got, want), f"{what} k={k}: scores differ from "
-                  "the full scan")
-            check(reply["approximate_count"] == int(c[0]), "approximate count differs")
-            if "fp_hex" in form:
-                check(got[0] == 1.0, "self-query not 1.0 at rank 0")
-        else:
-            _v, _i, c = full_scan_topk(
-                folded, fpops, fold_words(q[None, :], fold), 1, cut_t, sim, *ab
-            )
-            full = scores_np(
-                rows[idx].cpu().numpy().view(np.uint32),
-                q.cpu().numpy().view(np.uint32), sim, *ab,
-            )
-            _check_folded(tag, f"{what} {sim} k={k}", got, idx, int(c[0]),
-                          reply["approximate_count"], full, cut,
-                          picks[ri] if "fp_hex" in form else None)
-        log(f"[{tag}] {what} {sim} k={k} cut={cut}: {len(got)} results, "
-            f"approximate_count {reply['approximate_count']}, exact against "
-            + ("the full scan" if fold == 1 else "full-width rescore and the "
-               "folded full scan"))
+        ids, smiles, got = zip(*reply["results"]) if reply["results"] else ((), (), ())
+        _check_answer(
+            tag, form.get("smiles") or "fp_hex", rows, pops, q,
+            int(form["return_count"]), float(form.get("similarity_cutoff", 0)),
+            form.get("similarity", "tanimoto"),
+            (float(form.get("alpha", 1)), float(form.get("beta", 1))),
+            got, _smoke_rows(tag, ids, smiles), reply["approximate_count"],
+            fold, picks[ri] if "fp_hex" in form else None,
+        )
     wrong = _post(port, {**requests[0][1], "dbkeys": "wrong"})
     check(wrong["results"] == [] and wrong["approximate_count"] == 0,
           "wrong dbkey must return no results")
     log(f"[{tag}] wrong dbkey: results []")
     return len(requests) + 1
+
+
+def _check_socket_requests(path, rows, pops, device, fold, tag):
+    """Two fingerprint self-queries over the reference's socket protocol,
+    one connection, checked by :func:`_check_answer`."""
+    rng = np.random.default_rng(SEED + 11)
+    picks = [int(i) for i in rng.integers(0, rows.shape[0], 2)]
+    with SocketClient(path) as client:
+        for rn, (i, k, cut) in enumerate(zip(picks, (20, 128), (0.0, 0.3)), 1):
+            fp = rows[i].cpu().numpy().tobytes()
+            got_rn, approx, smiles, ids, scores = client.ask(
+                encode_socket_request([("smoke", "smoke")], rn, k, cut, fp))
+            check(got_rn == rn, f"[{tag}] socket request_num {got_rn} != {rn}")
+            check(len(scores) > 0, f"[{tag}] socket self-query returned nothing")
+            _check_answer(tag, "socket fp", rows, pops, rows[i], k, cut,
+                          "tanimoto", (1.0, 1.0), scores,
+                          _smoke_rows(tag, ids, smiles), approx, fold, i)
+    return len(picks)
 
 
 def phase_folded_library(device, n_rows, tmp):
@@ -1068,6 +1228,361 @@ def phase_bitplane_fold(device, n_rows, fold=4):
     return launches
 
 
+H_SMILES = 100_000  # (h): compounds of the SMILES library createdb builds
+H_DBKEY = "zinc"
+# (h): chain units of the SMILES library, each bonded to the unit before it
+# through its first atom and to the one after it through its last, and the
+# groups that end a chain
+SMILES_UNITS = (
+    "C", "CC", "CCC", "C(C)", "C(C)(C)", "C(=O)", "C(=O)N", "NC(=O)", "N",
+    "N(C)", "O", "OC", "S", "S(=O)(=O)", "C(F)(F)", "C(O)", "C(N)", "C(Cl)",
+    "C=C", "c1ccc(cc1)", "c1ccccc1", "c1ccncc1", "c1cc(F)ccc1", "c1ccsc1",
+    "c1cc[nH]c1", "c1ccc2ccccc2c1", "C1CCN(CC1)", "N1CCN(CC1)", "C1CC1",
+    "C1CCOC1", "c1cnc(nc1)", "C(C#N)", "c1ccoc1", "c1cc(Cl)ccc1",
+    "c1cc(OC)ccc1", "C1CCCCC1", "N1CCOCC1", "C(=O)O", "OCC", "NC",
+)
+SMILES_ENDS = (
+    "C", "O", "N", "F", "Cl", "Br", "C(=O)O", "C#N", "C(F)(F)F", "OC",
+    "S(N)(=O)=O", "C(C)C", "c1ccccc1", "N(C)C", "C(=O)N",
+)
+BAD_SMILES_LINE = "C1CC(N BAD000000001\n"  # unclosed ring and branch
+CUTOFF_GRID = tuple(np.float32(c) for c in np.arange(0.0, 1.0001, 0.05))
+
+
+def write_smiles_library(path, n, seed) -> dict[str, str]:
+    """A gzip ``.smi`` of ``n`` SMILES made by string assembly from
+    :data:`SMILES_UNITS` (two or three units and an end group) with ids
+    ``ZINC<index>``, plus one bad line in the middle; returns id -> SMILES
+    of the good lines, in file order."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, 4, n)
+    units = rng.integers(0, len(SMILES_UNITS), (n, 3))
+    ends = rng.integers(0, len(SMILES_ENDS), n)
+    by_id = {}
+    for i in range(n):
+        by_id[f"ZINC{i:09d}"] = "".join(
+            SMILES_UNITS[u] for u in units[i, :lengths[i]]
+        ) + SMILES_ENDS[ends[i]]
+    lines = [f"{smi} {cid}\n" for cid, smi in by_id.items()]
+    lines.insert(n // 2, BAD_SMILES_LINE)
+    with gzip.open(path, "wt") as fh:
+        fh.writelines(lines)
+    return by_id
+
+
+def _run_cli(tag, name, *args, stdin=None, timeout=900):
+    """Run ``python -m gpusimilarity_tpu_torch.cli.<name>``; returns the
+    finished process and its seconds. Fails on a non-zero exit."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"gpusimilarity_tpu_torch.cli.{name}",
+         *map(str, args)],
+        cwd=ROOT, env=_port_env(), input=stdin, capture_output=True, text=True,
+        timeout=timeout,
+    )
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"[{tag}] {name} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc, seconds
+
+
+def _same_data(a, b) -> bool:
+    return (a.count == b.count and a.bitcount == b.bitcount
+            and a.dbkey == b.dbkey and a.generator == b.generator
+            and np.array_equal(np.asarray(a.fingerprints), np.asarray(b.fingerprints))
+            and list(a.smiles) == list(b.smiles) and list(a.ids) == list(b.ids))
+
+
+def phase_createdb(tmp):
+    """(h) 1-5: build a library from SMILES with the port's createdb, to
+    ``.fsim`` and streamed to ``.tfsim``; convertdb and mergedb; check the
+    files. Returns the paths, the loaded library and the times."""
+    from gpusimilarity_tpu_torch.utils.fingerprints import (
+        generator_tag,
+        smiles_to_fingerprint_bin,
+    )
+    from gpusimilarity_tpu_torch.utils.tfsim import load_any
+
+    tmp = Path(tmp)
+    smi = tmp / "zinc.smi.gz"
+    by_id = write_smiles_library(smi, H_SMILES, SEED + 13)
+    fsim, merged = tmp / "zinc.fsim", tmp / "zinc2.fsim"
+    created, converted = tmp / "created.tfsim", tmp / "converted.tfsim"
+    # one worker per core this process may run on (os.cpu_count() counts
+    # the host's, which a container may not have)
+    workers = len(os.sched_getaffinity(0))
+    proc, secs = _run_cli("h", "createdb", smi, fsim, "--dbkey", H_DBKEY,
+                          "--workers", workers)
+    check("Error processing" in proc.stderr, "createdb did not report the bad line")
+    _proc, secs_t = _run_cli("h", "createdb", smi, created, "--dbkey", H_DBKEY,
+                             "--workers", workers)
+    rates = (H_SMILES / secs, H_SMILES / secs_t)
+    log(f"[h] createdb of {H_SMILES:,} SMILES and one bad line with "
+        f"{workers} workers: .fsim {secs:.2f}s, {rates[0]:.0f} "
+        f"compounds/s; streamed .tfsim {secs_t:.2f}s, {rates[1]:.0f} compounds/s")
+    _proc, secs_c = _run_cli("h", "convertdb", fsim, converted)
+    _proc, secs_m = _run_cli("h", "mergedb", "-o", merged, fsim, fsim)
+    log(f"[h] convertdb .fsim -> .tfsim {secs_c:.2f}s; mergedb of the .fsim "
+        f"with itself {secs_m:.2f}s")
+
+    data = load_any(fsim)
+    ids = [b.decode() for b in data.ids]
+    check(data.count == H_SMILES and ids == list(by_id),
+          f"createdb kept {data.count} rows, not the {H_SMILES:,} good lines "
+          "in order")
+    check(data.dbkey == H_DBKEY and data.generator == generator_tag(),
+          f"dbkey {data.dbkey!r}, generator {data.generator!r}")
+    sample = np.random.default_rng(SEED + 14).choice(H_SMILES, 200, replace=False)
+    for i in sample:
+        fp, canon = smiles_to_fingerprint_bin(by_id[ids[i]])
+        check(data.fingerprints[i].tobytes() == fp and data.smiles[i] == canon,
+              f"row {i}: fingerprint or SMILES differs from "
+              "smiles_to_fingerprint_bin")
+    check(_same_data(load_any(created), data), "createdb's .tfsim != the .fsim")
+    check(_same_data(load_any(converted), data), "convertdb's .tfsim != the .fsim")
+    two = load_any(merged)
+    check(two.count == 2 * H_SMILES and two.dbkey == H_DBKEY
+          and np.array_equal(two.fingerprints, np.concatenate([data.fingerprints] * 2))
+          and [b.decode() for b in two.ids] == ids * 2,
+          "mergedb output is not the library twice")
+    log(f"[h] bad line dropped, {H_SMILES:,} rows, 200 sampled rows equal "
+        "smiles_to_fingerprint_bin, both .tfsim load equal to the .fsim, the "
+        f"merged file has {two.count:,} rows")
+    return {"fsim": fsim, "merged": merged, "data": data, "by_id": by_id,
+            "rates": rates, "seconds": (secs, secs_t, secs_c, secs_m)}
+
+
+class _Library:
+    """One database the (h) server serves, for the plain checks: rows and
+    popcounts on the card, and the id and SMILES of each row."""
+
+    def __init__(self, name, key, rows, pops, ids=None, smiles=None):
+        self.name, self.key, self.rows, self.pops = name, key, rows, pops
+        self._ids, self._smiles = ids, smiles
+
+    def id(self, i):
+        return self._ids[i] if self._ids is not None else f"SMK{i:08d}"
+
+    def smiles(self, i):
+        return self._smiles[i] if self._smiles is not None else f"C{i}"
+
+    def counts(self, q, cuts):
+        from gpusimilarity_tpu_torch.ops.scan import full_scan_topk
+
+        qs = q[None, :].expand(len(cuts), -1).contiguous()
+        cut_t = torch.tensor(cuts, dtype=torch.float32, device=q.device)
+        return full_scan_topk(self.rows, self.pops, qs, 1, cut_t)[2].tolist()
+
+    def at_least(self, q, cut, count):
+        """(score, row) of every row scoring >= ``cut``: ``count`` many."""
+        from gpusimilarity_tpu_torch.ops.scan import full_scan_topk
+
+        if count == 0:
+            return []
+        cut_t = torch.tensor([cut], dtype=torch.float32, device=q.device)
+        v, i, c = full_scan_topk(self.rows, self.pops, q[None, :], count, cut_t)
+        check(int(c[0]) == count and bool((v[0] >= cut).all()), "plain count")
+        return list(zip(v[0].tolist(), i[0].tolist()))
+
+
+def expected_merge(libs, q, k):
+    """The reference's multi-database answer (``gpusim.cpp:306-374``) to a
+    query at the smallest cutoff of :data:`CUTOFF_GRID` at which every
+    database's whole >= cutoff set fits in ``k``, so that no tie decides
+    which rows come back: all rows sorted by (-score, database order, id,
+    SMILES), duplicate SMILES dropped with their ids joined by ``;:;``.
+    Returns (cutoff, count, smiles, ids, scores)."""
+    counts = np.array([lib.counts(q, CUTOFF_GRID) for lib in libs])
+    fits = np.flatnonzero(counts.sum(axis=0) <= k)
+    check(fits.size > 0, f"more than {k} rows score 1.0")
+    ci = int(fits[0])
+    cut = float(CUTOFF_GRID[ci])
+    rows = []
+    for order, lib in enumerate(libs):
+        rows += [(-sc, order, lib.id(i), lib.smiles(i))
+                 for sc, i in lib.at_least(q, cut, int(counts[order, ci]))]
+    rows.sort()
+    smiles, ids, scores, seen = [], [], [], {}
+    for neg, _order, cid, smi in rows:
+        if smi in seen:
+            ids[seen[smi]] += ";:;" + cid
+            continue
+        seen[smi] = len(smiles)
+        smiles.append(smi)
+        ids.append(cid)
+        scores.append(-neg)
+    return cut, int(counts[:, ci].sum()), smiles, ids, scores
+
+
+def _post_page(port, path, fields):
+    body = urllib.parse.urlencode(fields).encode()
+    req = urllib.request.Request(f"http://localhost:{port}{path}", data=body)
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.read().decode()
+
+
+def phase_entrypoints(device, tmp, smoke_path, built, server_args=()):
+    """(h) 6-12: serve the built library, its merged twin and (d)'s library
+    through ``cli.server --socket_name --http_interface``, then ask it over
+    the socket, the HTML UI, ``cli.search`` and the FDW."""
+    from gpusimilarity_tpu_torch.fdw import TpuSimilarityFDW
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows
+
+    data = built["data"]
+    words = np.ascontiguousarray(data.fingerprints).view(np.int32)
+    zrows = torch.from_numpy(words).to(device)
+    zpops = popcount_rows(zrows).to(torch.int16)
+    zids = [b.decode() for b in data.ids]
+    zsmiles = [b.decode() for b in data.smiles]
+    srows, spops = server_rows(device, SERVER_ROWS)
+    libs = {
+        "zinc": _Library("zinc", H_DBKEY, zrows, zpops, zids, zsmiles),
+        "zinc2": _Library("zinc2", H_DBKEY, torch.cat([zrows, zrows]),
+                          torch.cat([zpops, zpops]), zids * 2, zsmiles * 2),
+        "smoke": _Library("smoke", "smoke", srows, spops),
+    }
+    rng = np.random.default_rng(SEED + 17)
+    zr = [int(i) for i in rng.integers(0, H_SMILES, 5)]
+    sr = [int(i) for i in rng.integers(0, SERVER_ROWS, 53)]
+    out = {}
+    args = ["--socket_name", SOCKET_NAME, "--http_interface", *server_args]
+    with serving([built["fsim"], built["merged"], smoke_path], args, "h", tmp) as port:
+        sock = Path(tmp) / SOCKET_NAME
+        launches0 = _get(port, "/stats")["kernel_launches"]["bitplane_phase1"]
+
+        def fp_of(name, i):
+            return libs[name].rows[i % libs[name].rows.shape[0]]
+
+        # (d)'s library has no duplicate SMILES: (d)'s rules. Answers from
+        # the built libraries merge duplicate molecules, so they are held to
+        # the plain scans' merge, exactly
+        singles = [(sr[0], 20, 0.0), (sr[1], 128, 0.3)]
+        merges = [(("zinc",), "zinc", zr[0]), (("zinc2",), "zinc", zr[1]),
+                  (("zinc", "smoke"), "zinc", zr[2]),
+                  (("zinc", "zinc2"), "zinc", zr[3]),
+                  (("zinc2", "zinc", "smoke"), "zinc", zr[4]),
+                  (("smoke", "zinc"), "smoke", sr[2])]
+        with SocketClient(sock) as client:
+            for rn, (i, k, cut) in enumerate(singles, 1):
+                lib, q = libs["smoke"], fp_of("smoke", i)
+                got_rn, approx, smiles, ids, scores = client.ask(
+                    encode_socket_request([("smoke", lib.key)], rn, k, cut,
+                                          q.cpu().numpy().tobytes()))
+                check(got_rn == rn and len(scores) > 0,
+                      f"[h] socket smoke: request {got_rn}, {len(scores)} results")
+                _check_answer("h", "socket smoke", lib.rows, lib.pops, q, k, cut,
+                              "tanimoto", (1.0, 1.0), scores,
+                              _smoke_rows("h", ids, smiles), approx, 1, i)
+            for rn, (names, qname, i) in enumerate(merges, len(singles) + 1):
+                q = fp_of(qname, i)
+                cut, count, want_smiles, want_ids, want_scores = expected_merge(
+                    [libs[n] for n in names], q, 100)
+                got = client.ask(encode_socket_request(
+                    [(n, libs[n].key) for n in names], rn, 100, cut,
+                    q.cpu().numpy().tobytes()))
+                check(got == (rn, count, want_smiles, want_ids, want_scores),
+                      f"[h] socket {names}: the answer differs from the plain "
+                      f"scans' merge at cutoff {cut}")
+                check(want_scores[0] == 1.0, f"[h] socket {names}: no self hit")
+                joined = sum(";:;" in cid for cid in want_ids)
+                log(f"[h] socket {'+'.join(names)} cut={cut:.2f}: {len(want_ids)} "
+                    f"results ({joined} with joined ids), count {count}, exact "
+                    "against the plain scans' merge")
+            wrong = client.ask(encode_socket_request(
+                [("zinc", "wrong")], 99, 20, 0.0, fp_of("zinc", zr[0]).cpu().numpy().tobytes()))
+            check(wrong == (99, 0, [], [], []), "[h] socket wrong dbkey answered")
+            log("[h] socket wrong dbkey: empty answer")
+
+        # a complete record whose first string lacks its NUL: the server
+        # must drop the connection, then answer on a new one
+        corrupt = struct.pack(">iI", 1, 4) + b"zinc" + _qt_string(b"k") + \
+            struct.pack(">iid", 7, 5, 0.0) + struct.pack(">I", 128) + bytes(128)
+        with SocketClient(sock) as client:
+            client.sock.sendall(corrupt)
+            check(client.sock.recv(1 << 16) == b"", "[h] corrupt request answered")
+        latencies = []
+        with SocketClient(sock) as client:
+            for rn, i in enumerate(sr[3:], 1000):
+                payload = encode_socket_request(
+                    [("smoke", "smoke")], rn, 20, 0.0, fp_of("smoke", i).cpu().numpy().tobytes())
+                t0 = time.perf_counter()
+                got_rn, _approx, _smiles, ids, scores = client.ask(payload)
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                check(got_rn == rn and ids[0] == f"SMK{i:08d}" and scores[0] == 1.0,
+                      "[h] socket self-query")
+        out["socket_p50_ms"] = statistics.median(latencies)
+        log(f"[h] corrupt request: connection dropped; the server answered "
+            f"{len(latencies)} B=1 self-queries on a new connection after it, "
+            f"round trip p50 {out['socket_p50_ms']:.3f} ms (min "
+            f"{min(latencies):.3f}, max {max(latencies):.3f}; k=20, "
+            f"{SERVER_ROWS:,} rows)")
+
+        with urllib.request.urlopen(f"http://localhost:{port}/", timeout=60) as r:
+            status, page = r.status, r.read().decode()
+        check(status == 200 and 'action="/similarity_search"' in page,
+              "[h] GET / is not the search form")
+        # the UI, the REPL and the FDW ask for an input SMILES whose 10 best
+        # rows are 10 molecules: the merge folds rows of one SMILES into one,
+        # so a compound with duplicates among its neighbours returns fewer
+        for row in rng.integers(0, H_SMILES, 64):
+            query_row = int(row)
+            query_smiles = built["by_id"][zids[query_row]]
+            want = _post(port, {"smiles": query_smiles, "return_count": 10,
+                                "dbnames": "zinc", "dbkeys": H_DBKEY})
+            if len(want["results"]) == 10:
+                break
+        check(len(want["results"]) == 10, "[h] no compound with 10 distinct neighbours")
+        form = {"smiles": query_smiles, "return_count": 20,
+                "similarity_cutoff": 0.0, "dbnames": "zinc", "dbkeys": H_DBKEY}
+        page_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            status, page = _post_page(port, "/similarity_search", form)
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            check(status == 200, f"[h] HTML search {status}")
+        check(page.count("<svg") >= 2
+              and 'href="http://zinc.docking.org/substance/' in page,
+              "[h] the results page lacks depictions or ZINC links")
+        out["page_ms"] = (page_ms[0], statistics.median(page_ms[1:]))
+        log(f"[h] HTML UI: GET / 200 with the form; POST /similarity_search 200, "
+            f"{page.count('<svg')} SVG depictions, ZINC links; page "
+            f"{page_ms[0]:.3f} ms first (depictions drawn), "
+            f"{out['page_ms'][1]:.3f} ms median of 4 more (memoised)")
+
+        proc, _secs = _run_cli(
+            "h", "search", "--port", port, "--dbnames", "zinc", "--dbkeys",
+            H_DBKEY, "--return_count", 5, stdin=query_smiles + "\n\n")
+        hit = [ln for ln in proc.stdout.splitlines()
+               if ln.split()[:1] == ["1.0000"] and ln.split()[-1] == zsmiles[query_row]]
+        check(bool(hit), f"[h] cli.search printed no self hit:\n{proc.stdout}")
+        log(f"[h] cli.search: {hit[0].strip()}")
+
+        Qual = collections.namedtuple("Qual", "field_name operator value")
+        fdw = TpuSimilarityFDW({"server": "localhost", "port": str(port),
+                                "db_name": "zinc", "dbkey": H_DBKEY,
+                                "max_results": "10"}, {})
+        cols = ["id", "query", "smiles", "similarity"]
+        fdw_rows = list(fdw.execute([Qual("query", "=", query_smiles)], cols))
+        check(fdw_rows == [{"id": cid, "query": query_smiles, "smiles": smi,
+                             "similarity": sc} for cid, smi, sc in want["results"]],
+              f"[h] FDW rows {fdw_rows[:2]} differ from the JSON answer")
+        # the self row leads, among any rows of the same fingerprint
+        check(fdw_rows[0]["similarity"] == 1.0
+              and any(r["smiles"] == zsmiles[query_row] for r in fdw_rows
+                      if r["similarity"] == 1.0), "[h] FDW: no self row first")
+        check(list(fdw.execute([], cols)) == [], "[h] FDW without a qual")
+        log(f"[h] FDW: {len(fdw_rows)} rows, the JSON answer's, self row first "
+            f"({fdw_rows[0]['id']})")
+
+        stats = _get(port, "/stats")
+        out["launches"] = stats["kernel_launches"]["bitplane_phase1"] - launches0
+        check(out["launches"] > 0, "[h] the bitplane kernel did not launch")
+        log(f"[h] server bitplane launches {out['launches']}; /stats searches "
+            f"{stats['searches']}")
+    out["createdb_rates"] = built["rates"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1116,8 +1631,10 @@ def main() -> int:
         check(len(probe_records) == 12, f"(m) {len(probe_records)} probe records")
     torch.cuda.empty_cache()
 
+    run_tmp = tempfile.TemporaryDirectory()
     with phase("d"):
-        server_launches, n_requests = phase_server(device, SERVER_ROWS)
+        smoke_path = write_server_library(device, SERVER_ROWS, run_tmp.name)
+        server_launches, n_requests = phase_server(device, smoke_path, SERVER_ROWS)
         check(server_launches > 0, "(d) launched no kernel")
         check(n_requests >= 4, "fewer than 4 requests answered")
     torch.cuda.empty_cache()
@@ -1140,21 +1657,33 @@ def main() -> int:
 
     with phase("f"):
         folded_server_launches, n_requests = phase_server(
-            device, SERVER_ROWS, ("--fold", "4"), fold=4, tag="f",
-            kernel="dense_phase1",
+            device, smoke_path, SERVER_ROWS, ("--fold", "4"), fold=4, tag="f",
+            kernel="dense_phase1", socket_dir=run_tmp.name,
         )
         check(folded_server_launches > 0, "(f) launched no dense kernel")
-        check(n_requests >= 4, "fewer than 4 requests answered")
+        check(n_requests >= 6, "fewer than 6 requests answered")
     torch.cuda.empty_cache()
 
     with phase("g"):
         fold_launches = phase_bitplane_fold(device, LIB_ROWS)
         check(fold_launches > 0, "(g) launched no kernel")
+    torch.cuda.empty_cache()
+
+    with phase("h"):
+        built = phase_createdb(run_tmp.name)
+        entry_points = phase_entrypoints(device, run_tmp.name, smoke_path, built)
+    run_tmp.cleanup()
 
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
-        f"server {server_launches}, fold 4 {fold_launches}; dense engine "
-        f"{dense_engine_launches}, server {folded_server_launches}; "
-        f"matrix-product probe {probe_launches}")
+        f"server {server_launches}, fold 4 {fold_launches}, entry points "
+        f"{entry_points['launches']}; dense engine {dense_engine_launches}, "
+        f"server {folded_server_launches}; matrix-product probe {probe_launches}")
+    log(f"entry points ({gpu_line()}): createdb "
+        f"{entry_points['createdb_rates'][0]:.0f} compounds/s to .fsim, "
+        f"{entry_points['createdb_rates'][1]:.0f} to .tfsim; socket round trip "
+        f"p50 {entry_points['socket_p50_ms']:.3f} ms; HTML page "
+        f"{entry_points['page_ms'][0]:.3f} ms first, "
+        f"{entry_points['page_ms'][1]:.3f} ms memoised")
     log(f"engine latency (ms) unfolded 113,335,291 rows: "
         + ", ".join(f"B={b} k={k}: {ms:.3f}" for (b, k), ms in latency.items()))
     log(f"engine latency (ms) fold 4 1,020,017,472 rows: "
@@ -1184,8 +1713,8 @@ def main() -> int:
         "ms_b128": mxu["ms"][128][0], "bound_ms_b128": mxu["ms"][128][1][0],
         "dense_ms_same_store": mxu["dense_ms"],
     })
-    k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches,
-               max_err, timing)
+    k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
+               + entry_points["launches"], max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
     k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches,

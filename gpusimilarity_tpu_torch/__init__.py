@@ -18,3 +18,7 @@ own copies under ``utils/``.
 """
 
 __version__ = "0.1.0"
+
+from .utils.smiles import canonical_smiles, parse_smiles  # noqa: F401
+
+__all__ = ["canonical_smiles", "parse_smiles", "__version__"]

@@ -1,14 +1,25 @@
 """Run the similarity-search HTTP service on one GPU (twin of
 ``gpusimilarity_tpu/cli/server.py``)::
 
-    python -m gpusimilarity_tpu_torch.cli.server db.fsim [more.fsim ...] --port 8080
+    python -m gpusimilarity_tpu_torch.cli.server db.fsim [more.fsim ...] --port 8080 \
+        [--socket_name gpusimilarity] [--http_interface]
 
 The device is the first CUDA card; without one the server raises, unless
 ``--cpu_only`` asks for the plain PyTorch path on the host. Both phase-1
 kernels are built (or loaded from their cached builds) before the server
 prints ``ready``. ``--fold``, ``--gpu_bitcount``, ``--scan_mode`` and
 ``--popless`` choose the store as in the JAX server; a library too large
-for the card is folded and served dense.
+for the card is folded and served dense. ``--socket_name`` also serves the
+reference's binary protocol on ``$TMPDIR/<name>``, ``--http_interface`` the
+debug HTML UI, and ``--search_timeout_s`` bounds each request's wait.
+
+The JAX server's other flags have no counterpart here: ``--pallas`` (the
+CUDA kernels are the only device path), ``--no_warmup``,
+``--warmup_batch``, ``--warmup_ks`` and ``--jax_cache_dir`` (PyTorch
+compiles no program per shape, so there is nothing to warm or cache),
+``--jax_profiler_port`` (``torch.profiler`` traces in process), and
+``--coordinator``, ``--num_processes`` and ``--process_id``, which belong
+to the multi-host mode the port does not have yet.
 """
 
 from __future__ import annotations
@@ -16,6 +27,8 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+
+from ..serve.batching import DEFAULT_RESULT_TIMEOUT_S
 
 SERVING_KERNELS = ("bitplane_phase1", "dense_phase1")
 
@@ -29,6 +42,10 @@ def parse_args(argv=None):
     parser.add_argument("dbnames", nargs="+", help=".fsim files to serve")
     parser.add_argument("--hostname", default="localhost")
     parser.add_argument("--port", default=8080, type=int)
+    parser.add_argument(
+        "--http_interface", action="store_true",
+        help="enable the debug HTML UI (not for production exposure)",
+    )
     parser.add_argument(
         "--cpu_only", action="store_true",
         help="run the plain PyTorch path on the host CPU instead of the GPU",
@@ -57,6 +74,15 @@ def parse_args(argv=None):
                         help="max queries coalesced into one kernel launch")
     parser.add_argument("--batch_window_ms", default=2.0, type=float,
                         help="batching window in milliseconds")
+    parser.add_argument(
+        "--search_timeout_s", default=DEFAULT_RESULT_TIMEOUT_S, type=float,
+        help="per-request result deadline in seconds",
+    )
+    parser.add_argument(
+        "--socket_name", default="",
+        help="also serve the reference's binary local-socket protocol on "
+        "$TMPDIR/<name> (the reference backend used 'gpusimilarity')",
+    )
     return parser.parse_args(argv)
 
 
@@ -92,8 +118,11 @@ def main(argv=None):
         registry,
         hostname=args.hostname,
         port=args.port,
+        debug_ui=args.http_interface,
         max_batch=args.max_batch,
         window_ms=args.batch_window_ms,
+        socket_name=args.socket_name or None,
+        search_timeout_s=args.search_timeout_s,
     )
     print(
         f"tpusimilarity ready on {args.hostname}:{server.port} "

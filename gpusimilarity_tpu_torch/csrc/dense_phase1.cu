@@ -496,15 +496,26 @@ cudaError_t launch_mma_slices(Args a, int max_queries) {
     return cudaSuccess;
 }
 
+// The queries one launch takes at rows of wf words: 32, and 16 at 2048-bit
+// rows, where a 32-query cutoff table would not fit beside the stages.
+// ops/dense_phase1.py counts launches with the same numbers
+// (KERNEL_MAX_QUERIES, KERNEL_MAX_QUERIES_WIDE) and checks them against
+// gpusim_dense_phase1_max_queries.
+int max_queries(int wf) { return wf <= 32 ? 32 : 16; }
+
 cudaError_t launch_mma_any(const Args& a) {
-    if (a.wf <= 8) return launch_mma_slices<1>(a, 32);
-    if (a.wf <= 16) return launch_mma_slices<2>(a, 32);
-    if (a.wf <= 32) return launch_mma_slices<4>(a, 32);
-    // 2048-bit rows: a 32-query cutoff table would not fit beside the stages
-    return launch_mma_slices<8>(a, 16);
+    const int mq = max_queries(a.wf);
+    if (a.wf <= 8) return launch_mma_slices<1>(a, mq);
+    if (a.wf <= 16) return launch_mma_slices<2>(a, mq);
+    if (a.wf <= 32) return launch_mma_slices<4>(a, mq);
+    return launch_mma_slices<8>(a, mq);
 }
 
 }  // namespace
+
+// The queries one kernel launch takes at rows of wf words; a batch of b
+// queries is ceil(b / this) launches.
+extern "C" int gpusim_dense_phase1_max_queries(int wf) { return max_queries(wf); }
 
 // Launches phase 1 on `stream` for b queries of wf words over the first n
 // columns of a planar store with row stride ld; pops may be NULL (popless).

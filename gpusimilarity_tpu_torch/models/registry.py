@@ -199,6 +199,27 @@ class DatabaseRegistry:
 
     # ----------------------------------------------------------------- search
 
+    def search_databases(
+        self,
+        dbnames: Sequence[str],
+        dbkeys: Sequence[str],
+        query: np.ndarray,
+        k: int = 20,
+        cutoff: float = 0.0,
+        similarity: str = TANIMOTO,
+        alpha: float = 1.0,
+        beta: float = 1.0,
+    ) -> SearchResult:
+        """Search several databases and merge (reference ``searchDatabases``,
+        ``gpusim.cpp:306-374``): sort all results descending by score, drop
+        duplicate SMILES joining their IDs with ``";:;"``, truncate to k, and
+        sum approximate counts."""
+        [merged] = self.search_databases_batch(
+            dbnames, dbkeys, np.asarray(query)[None, :], [k], [cutoff],
+            similarity=similarity, alpha=alpha, beta=beta,
+        )
+        return merged
+
     def search_databases_batch(
         self,
         dbnames: Sequence[str],

@@ -29,6 +29,10 @@ KERNEL_MIN_BLOCK, MAX_BLOCK = 8, 256
 # the widest row the kernel takes: 64 packed words, 2048 bits (its integer
 # epilogue is proven to that width; the plain version takes any)
 KERNEL_MAX_WORDS = 64
+# the queries one launch of the kernel takes; the C entry walks a larger
+# batch in slices of this many (its cutoff table has to fit in shared
+# memory), 16 at rows over 32 words (gpusim_dense_phase1_max_queries)
+KERNEL_MAX_QUERIES, KERNEL_MAX_QUERIES_WIDE = 32, 16
 
 _LAUNCH_LOCK = threading.Lock()
 _launches = 0
@@ -45,10 +49,17 @@ def reset_launch_count() -> None:
         _launches = 0
 
 
-def _count_launch() -> None:
+def kernel_launches(b: int, wf: int) -> int:
+    """The kernel launches one call makes for ``b`` queries of ``wf`` words:
+    one per slice of the batch."""
+    per_launch = KERNEL_MAX_QUERIES if wf <= 32 else KERNEL_MAX_QUERIES_WIDE
+    return -(-b // per_launch)
+
+
+def _count_launches(n: int) -> None:
     global _launches
     with _LAUNCH_LOCK:
-        _launches += 1
+        _launches += n
 
 
 def dense_phase1_plain(
@@ -147,7 +158,7 @@ def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
         raise RuntimeError(
             f"dense phase-1 kernel launch failed: {err(rc).decode()}"
         )
-    _count_launch()
+    _count_launches(kernel_launches(b, wf))
     return block_max, counts
 
 

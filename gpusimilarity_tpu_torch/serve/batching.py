@@ -21,6 +21,10 @@ from ..models.registry import DatabaseRegistry
 from ..models.results import SearchResult
 from ..ops.scan import TANIMOTO
 
+# how long a caller waits for its result: PyTorch compiles nothing at run
+# time, so this covers a full-library search behind a queue of others
+DEFAULT_RESULT_TIMEOUT_S = 300.0
+
 
 @dataclass
 class _Pending:
@@ -46,7 +50,7 @@ class BatchingSearcher:
         registry: DatabaseRegistry,
         max_batch: int = 64,
         window_ms: float = 2.0,
-        result_timeout_s: float = 300.0,
+        result_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S,
     ):
         self._registry = registry
         self._max_batch = max_batch

@@ -8,18 +8,24 @@
   ``{"approximate_count": N, "results": [[id, smiles, score], ...]}``.
   The URL suffix names the databases for clients that post no ``dbnames``;
   ``all`` means every loaded database.
-* ``GET /healthz`` and ``GET /stats`` (which also reports the kernel's
-  launch count).
+* ``GET /healthz`` and ``GET /stats`` (which also reports the kernels'
+  launch counts).
+* ``POST /similarity_search`` + ``GET /`` serve a debug HTML UI when enabled
+  (the reference's ``--http_interface`` mode).
+* ``socket_name`` also serves the reference's binary local-socket protocol
+  (:mod:`.socket_server`) beside HTTP.
 
-The debug HTML UI and the reference's binary socket protocol are not
-ported yet (``ROADMAP.md`` Queue 1 #13).
+HTTP and socket handler threads only enqueue on one
+:class:`BatchingSearcher`, which runs every search on the device.
 """
 
 from __future__ import annotations
 
+import html
 import json
 import logging
 import threading
+import urllib.parse
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from email.parser import BytesParser
 from email.policy import HTTP as HTTP_POLICY
@@ -36,7 +42,7 @@ from ..utils.fingerprints import (
     generator_tag,
     smiles_to_query_words,
 )
-from .batching import BatchingSearcher
+from .batching import DEFAULT_RESULT_TIMEOUT_S, BatchingSearcher
 
 # request-size guard: the largest top-k a client may ask for
 MAX_RETURN_COUNT = 10_000
@@ -85,9 +91,13 @@ class SearchService:
         registry: DatabaseRegistry,
         max_batch: int = 64,
         window_ms: float = 2.0,
+        search_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S,
     ):
         self.registry = registry
-        self.searcher = BatchingSearcher(registry, max_batch, window_ms)
+        self.searcher = BatchingSearcher(
+            registry, max_batch, window_ms, result_timeout_s=search_timeout_s
+        )
+        self._svg_cache: dict[str, str] = {}
 
     def close(self):
         self.searcher.close()
@@ -180,21 +190,98 @@ class SearchService:
             "query_canonical": canonical,
         }
 
+    def index_html(self) -> str:
+        names = ",".join(self.registry.names())
+        return _INDEX_TEMPLATE.format(dbnames=html.escape(names or "all"))
 
-def make_handler(service: SearchService):
+    def results_html(self, payload: dict) -> str:
+        """Debug HTML with inline-SVG structure depictions per result
+        (reference renders RDKit PNGs into a tempdir image cache,
+        ``gpusim_server.py:171-252``; inline SVG needs no files/escaping).
+        Depictions are memoized per canonical SMILES across requests."""
+        rows = "\n".join(
+            "<tr><td>{}</td><td>{}<br>{}</td><td>{:.4f}</td></tr>".format(
+                _linkify(cid), self._depict(smi), html.escape(smi), score
+            )
+            for cid, smi, score in payload["results"]
+        )
+        query_smiles = payload.get("query_canonical") or payload.get("query", "")
+        query_cell = (
+            f"<p>Query: {self._depict(query_smiles)} "
+            f"{html.escape(query_smiles)}</p>"
+            if query_smiles
+            else ""
+        )
+        return (
+            self.index_html()
+            + query_cell
+            + f"<p>Approximate Total Matching Compounds: "
+            f"{payload['approximate_count']}, returning "
+            f"{len(payload['results'])}</p>"
+            f"<table border=1><tr><th>ID</th><th>Structure / SMILES</th>"
+            f"<th>Score</th></tr>"
+            f"{rows}</table>"
+        )
+
+    def _depict(self, smiles: str) -> str:
+        svg = self._svg_cache.get(smiles)
+        if svg is None:
+            from ..utils.depict import smiles_to_svg
+
+            svg = smiles_to_svg(smiles, size=160)
+            if len(self._svg_cache) > 4096:  # bound the memo like the
+                self._svg_cache.clear()  # reference's tempdir cache
+            self._svg_cache[smiles] = svg
+        return svg
+
+
+def _linkify(cid: str) -> str:
+    safe = html.escape(cid)
+    if cid.startswith("ZINC"):
+        # quoted attribute + URL-encoded fragment: html.escape alone leaves
+        # spaces unescaped, letting a hostile ID inject attributes/handlers
+        frag = urllib.parse.quote(cid[4:], safe="")
+        return f'<a href="http://zinc.docking.org/substance/{frag}">{safe}</a>'
+    return safe
+
+
+_INDEX_TEMPLATE = """<title>tpusimilarity</title>
+<h3>tpusimilarity debug interface</h3>
+<form action="/similarity_search" method="post">
+  SMILES: <input type="text" name="smiles">
+  Cutoff: <input type="text" name="similarity_cutoff" value="0.5">
+  <input type="hidden" name="return_count" value="20">
+  <input type="hidden" name="dbnames" value="{dbnames}">
+  <input type="hidden" name="dbkeys" value="">
+  <input type="submit" value="HTML search">
+</form>
+<form action="/similarity_search_json" method="post">
+  SMILES: <input type="text" name="smiles">
+  Cutoff: <input type="text" name="similarity_cutoff" value="0.5">
+  <input type="hidden" name="return_count" value="20">
+  <input type="hidden" name="dbnames" value="{dbnames}">
+  <input type="hidden" name="dbkeys" value="">
+  <input type="submit" value="JSON search">
+</form>
+"""
+
+
+def make_handler(service: SearchService, debug_ui: bool = False):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, fmt, *args):  # route through logging
             log.info("%s - %s", self.address_string(), fmt % args)
 
-        def _send_json(self, code: int, payload: dict):
-            body = json.dumps(payload).encode()
+        def _send(self, code: int, content_type: str, body: bytes):
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _send_json(self, code: int, payload: dict):
+            self._send(code, "application/json", json.dumps(payload).encode())
 
         def do_GET(self):
             if self.path == "/healthz":
@@ -203,6 +290,8 @@ def make_handler(service: SearchService):
                 )
             elif self.path == "/stats":
                 self._send_json(200, service.registry.stats())
+            elif debug_ui and self.path in ("/", "/index.html"):
+                self._send(200, "text/html", service.index_html().encode())
             else:
                 self._send_json(404, {"error": "not found"})
 
@@ -217,6 +306,10 @@ def make_handler(service: SearchService):
                         or None
                     )
                     self._send_json(200, service.handle_search(form, url_db))
+                elif debug_ui and self.path.startswith("/similarity_search"):
+                    payload = service.handle_search(form, None)
+                    self._send(200, "text/html",
+                               service.results_html(payload).encode())
                 else:
                     self._send_json(404, {"error": "not found"})
             except RequestError as e:
@@ -233,26 +326,42 @@ def make_handler(service: SearchService):
 
 
 class SimilarityServer:
-    """Owns the HTTP server + batching service."""
+    """Owns the HTTP server, the optional socket server and the batching
+    service."""
 
     def __init__(
         self,
         registry: DatabaseRegistry,
         hostname: str = "localhost",
         port: int = 8080,
+        debug_ui: bool = False,
         max_batch: int = 64,
         window_ms: float = 2.0,
+        socket_name: str | None = None,
+        search_timeout_s: float = DEFAULT_RESULT_TIMEOUT_S,
     ):
-        self.service = SearchService(registry, max_batch, window_ms)
+        self.service = SearchService(
+            registry, max_batch, window_ms, search_timeout_s=search_timeout_s
+        )
 
         # a burst of concurrent clients must not overflow the default
         # listen backlog of 5
         class _Server(ThreadingHTTPServer):
             request_queue_size = 128
 
-        self.httpd = _Server((hostname, port), make_handler(self.service))
+        self.httpd = _Server(
+            (hostname, port), make_handler(self.service, debug_ui)
+        )
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
+        self.socket_server = None
+        if socket_name:
+            from .socket_server import SocketProtocolServer
+
+            self.socket_server = SocketProtocolServer(
+                self.service.searcher, socket_name=socket_name
+            )
+            self.socket_server.start_background()
 
     def serve_forever(self):
         log.info("serving on port %d", self.port)
@@ -265,6 +374,8 @@ class SimilarityServer:
     def close(self):
         self.httpd.shutdown()
         self.httpd.server_close()
+        if self.socket_server:
+            self.socket_server.close()
         self.service.close()
         if self._thread:
             self._thread.join(timeout=5)

@@ -1,6 +1,5 @@
 """Fingerprint front end: SMILES -> (packed fingerprint, canonical SMILES)
-(the port's copy of ``gpusimilarity_tpu/utils/fingerprints.py``, without
-the depiction helper of the debug UI, which is not ported).
+(the port's copy of ``gpusimilarity_tpu/utils/fingerprints.py``).
 
 Drop-in equivalent of the reference's ``gpusim_utils.smiles_to_fingerprint_bin``
 (``python/gpusim_utils.py:55-66``): RDKit Morgan radius-2 / ``BITCOUNT``-bit
@@ -121,3 +120,20 @@ def smiles_to_query_words(
     )
     return fingerprint_bin_to_words(fp, bitcount), canon.decode("utf-8")
 
+
+def smiles_to_image_file(smiles: str, path: str) -> None:
+    """Render a 2-D depiction PNG (reference ``gpusim_utils.py:69-71``).
+
+    Depiction requires RDKit; the built-in parser has no coordinate
+    generation, so this raises a clear error when RDKit is absent.
+    """
+    if not HAVE_RDKIT:
+        raise FingerprintError(
+            "molecule depiction requires RDKit, which is not installed"
+        )
+    from rdkit.Chem import Draw  # type: ignore
+
+    mol = Chem.MolFromSmiles(smiles)
+    if mol is None:
+        raise FingerprintError("Bad structure")
+    Draw.MolToFile(mol, path)

@@ -1,6 +1,5 @@
 """Reader/writer for the reference ``.fsim`` v3 fingerprint database format
-(the port's copy of ``gpusimilarity_tpu/utils/fsim.py``; the merge of
-several files is not ported).
+(the port's copy of ``gpusimilarity_tpu/utils/fsim.py``).
 
 Format (big-endian QDataStream Qt_5_2; see reference ``gpusim.cpp:173-253``
 for the reader and ``python/gpusim_createdb.py:135-143`` for the writer)::
@@ -19,6 +18,11 @@ for the reader and ``python/gpusim_createdb.py:135-143`` for the writer)::
 The <=1 GiB chunking is the reference's multi-GPU shard unit
 (``gpusim_createdb.py:56-69``); the port loads the library onto one card
 whole, so chunk boundaries only matter for file compatibility.
+
+The reference's ``gpusim_mergedb.py`` has a known defect: it writes the header
+*without* the dbkey (``gpusim_mergedb.py:65-67``) even though the v3 reader
+expects one (``gpusim.cpp:191-194``), producing unreadable files. Our
+:func:`merge_fsim` writes a correct v3 header.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from __future__ import annotations
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
@@ -305,3 +309,84 @@ def write_fsim(
     os.replace(tmp, path)
     _write_fsim_sidecar(path, data)
 
+
+def merge_fsim(
+    inputs: Iterable[str | os.PathLike],
+    output: str | os.PathLike,
+    dbkey: Optional[str] = None,
+) -> FingerprintData:
+    """Merge many ``.fsim`` files into one (parallel-build support).
+
+    Unlike the reference merger this writes a *valid* v3 header including the
+    dbkey (reference bug at ``gpusim_mergedb.py:65-67``). The output dbkey is
+    ``dbkey`` if given, else the (required-identical) input dbkeys.
+    """
+    inputs = list(inputs)
+    if not inputs:
+        raise ValueError("no input files")
+    merged: Optional[FingerprintData] = None
+    fps: list[np.ndarray] = []
+    smiles_tables: list = []
+    ids_tables: list = []
+    for p in inputs:
+        d = read_fsim(p)
+        if merged is None:
+            merged = FingerprintData(
+                dbkey=d.dbkey, bitcount=d.bitcount, smiles=[], ids=[],
+                generator=d.generator,
+            )
+        else:
+            if d.bitcount != merged.bitcount:
+                raise ValueError(
+                    "can't mix databases with different fingerprint bitcounts"
+                )
+            if dbkey is None and d.dbkey != merged.dbkey:
+                raise ValueError(
+                    f"dbkey mismatch ({d.dbkey!r} != {merged.dbkey!r}); pass an "
+                    "explicit dbkey to override"
+                )
+            if d.generator != merged.generator:
+                from .fingerprints import compatible_generators
+
+                # an untagged file (e.g. reference-built) is unknown, not
+                # incompatible — same policy as the server's guard; the
+                # merged output keeps the tagged side's provenance
+                if not merged.generator:
+                    merged.generator = d.generator
+                elif d.generator and (
+                    d.generator not in compatible_generators(merged.generator)
+                ):
+                    raise ValueError(
+                        "can't merge databases built by incompatible "
+                        f"fingerprint generators ({d.generator!r}"
+                        f" != {merged.generator!r})"
+                    )
+        fps.append(d.fingerprints)
+        smiles_tables.append(d.smiles)
+        ids_tables.append(d.ids)
+    assert merged is not None
+    if dbkey is not None:
+        merged.dbkey = dbkey
+    merged.fingerprints = np.concatenate(fps, axis=0)
+    # concatenate string tables at the blob level: materializing one bytes
+    # object per row would cost tens of GB of per-object overhead at the
+    # billion-row shard-merge scale this CLI exists for
+    merged.smiles = _concat_string_tables(smiles_tables)
+    merged.ids = _concat_string_tables(ids_tables)
+    write_fsim(output, merged)
+    return merged
+
+
+def _concat_string_tables(tables) -> "StringTable | list[bytes]":
+    if not all(isinstance(t, StringTable) for t in tables):
+        out: list[bytes] = []
+        for t in tables:
+            out.extend(t)
+        return out
+    blobs = [t._blob for t in tables]
+    offsets = []
+    base = 0
+    for t in tables:
+        offsets.append(t._offsets + base)
+        base += len(t._blob)
+    return StringTable(np.concatenate(blobs), np.concatenate(offsets))

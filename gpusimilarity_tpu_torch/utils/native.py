@@ -15,8 +15,6 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from ..ops.scan import popcount_rows_np
-
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
@@ -187,6 +185,10 @@ def rescore(
     w = words.shape[1]
     if query.shape != (w,):
         raise ValueError(f"query must be ({w},) packed words")
+    # imported here: the host-only modules (createdb and its workers) load
+    # this file and must not import torch
+    from ..ops.scan import popcount_rows_np
+
     qpop = int(popcount_rows_np(query[None, :])[0])
     out = np.empty(len(rows), dtype=np.float32)
     lib.tsn_rescore(
@@ -216,6 +218,8 @@ def synth_rescore(
         raise ImportError("native library not available")
     rows = np.ascontiguousarray(rows, dtype=np.int64)
     query = np.ascontiguousarray(query, dtype=np.uint32)
+    from ..ops.scan import popcount_rows_np
+
     qpop = int(popcount_rows_np(query[None, :])[0])
     out = np.empty(len(rows), dtype=np.float32)
     lib.tsn_synth_rescore(

@@ -1,6 +1,7 @@
 """Qt ``QDataStream``-compatible binary (de)serialization, dependency-free
 (the port's copy of ``gpusimilarity_tpu/utils/qtstream.py``, cut to what
-:mod:`.fsim` and :mod:`.strings` use).
+:mod:`.fsim`, :mod:`.strings` and the socket protocol of
+:mod:`..serve.socket_server` use).
 
 The reference system serializes its ``.fsim`` databases and its socket protocol
 with Qt's ``QDataStream`` at version ``Qt_5_2`` (see reference
@@ -78,6 +79,9 @@ class QtStreamReader:
     def read_uint32(self) -> int:
         return struct.unpack(">I", self._take(4))[0]
 
+    def read_double(self) -> float:
+        return struct.unpack(">d", self._take(8))[0]
+
     def read_string(self) -> Optional[bytes]:
         """Read a ``writeString``-encoded char* (length includes the NUL)."""
         n = self.read_uint32()
@@ -93,6 +97,13 @@ class QtStreamReader:
             # that will never arrive
             raise QtStreamCorruptError("writeString payload not NUL-terminated")
         return raw[:-1]
+
+    def read_bytearray(self) -> Optional[bytes]:
+        """Read a serialized ``QByteArray`` (uint32 length + raw bytes)."""
+        n = self.read_uint32()
+        if n == _NULL:
+            return None
+        return bytes(self._take(n))
 
     def read_bytearray_view(self) -> Optional[memoryview]:
         """Zero-copy variant of :meth:`read_bytearray`."""
@@ -118,6 +129,12 @@ class QtStreamWriter:
 
     def write_uint32(self, v: int) -> None:
         self._parts.append(struct.pack(">I", v))
+
+    def write_uint64(self, v: int) -> None:
+        self._parts.append(struct.pack(">Q", v))
+
+    def write_double(self, v: float) -> None:
+        self._parts.append(struct.pack(">d", v))
 
     def write_string(self, s: Optional[bytes | str]) -> None:
         """Write a char* as ``writeString`` does (length includes a NUL)."""

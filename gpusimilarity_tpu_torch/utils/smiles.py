@@ -1042,3 +1042,8 @@ def write_smiles(mol: Molecule, kekule: bool = False) -> str:
 
 def _digit_txt(d: int) -> str:
     return str(d) if d < 10 else f"%{d:02d}"
+
+
+def canonical_smiles(smiles: str, kekule: bool = False) -> str:
+    """Parse and re-write SMILES in this implementation's canonical form."""
+    return write_smiles(parse_smiles(smiles), kekule=kekule)

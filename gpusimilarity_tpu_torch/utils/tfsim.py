@@ -1,6 +1,5 @@
 """Native sharded database format (``.tfsim`` directory): the port's copy
-of ``gpusimilarity_tpu/utils/tfsim.py``, its reader and writer (the
-streaming writer and the format converter are not ported).
+of ``gpusimilarity_tpu/utils/tfsim.py``.
 
 The reference's only on-disk format is the zlib-compressed ``.fsim`` stream,
 which must be fully decompressed and re-laid-out at every server start
@@ -24,13 +23,14 @@ String-table layouts (``meta.json``'s optional ``strings`` map, per field):
 Everything memory-maps: startup cost is O(metadata), fingerprints stream to
 the device directly from the page cache, and the string tables are the same
 zero-copy :class:`StringTable` the engine serves from. ``.fsim`` remains the
-interchange format.
+interchange format (:func:`convert` goes both ways).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -163,9 +163,10 @@ def save_native(
     tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
     tmp.mkdir(parents=True, exist_ok=False)
     try:
-        from .synth import VirtualFingerprints
-
-        if isinstance(data.fingerprints, VirtualFingerprints):
+        # a virtual library's fingerprints exist only once .synth (which
+        # imports torch) is loaded: the host tools never import it
+        synth = sys.modules.get(f"{__package__}.synth")
+        if synth is not None and isinstance(data.fingerprints, synth.VirtualFingerprints):
             fp_meta = {"kind": "synthetic", "seed": data.fingerprints.seed}
         else:
             fp_meta = {"kind": "npy"}
@@ -243,6 +244,161 @@ def load_native(path: str | os.PathLike, mmap: bool = True) -> FingerprintData:
     return data
 
 
+_NPY_HEADER_LEN = 128  # reserved fixed-size .npy header (v1, padded)
+
+
+def _write_npy_header(f, shape: tuple, dtype_str: str) -> None:
+    """Write a fixed-length numpy v1 header at the file's current start.
+
+    Reserving a constant-size header lets a streaming writer append array
+    data with the row count unknown, then seek back and stamp the final
+    shape — no rewrite of a ~100 GB file. Padding with spaces is exactly
+    what ``np.lib.format`` itself does; only the length is pinned here.
+    """
+    dict_str = (
+        "{'descr': '%s', 'fortran_order': False, 'shape': %s, }"
+        % (dtype_str, repr(shape))
+    )
+    # magic(6) + version(2) + hlen(2) + dict + '\n' == _NPY_HEADER_LEN
+    pad = _NPY_HEADER_LEN - 10 - len(dict_str) - 1
+    if pad < 0:
+        raise ValueError(f"npy header dict too long: {dict_str!r}")
+    header = dict_str.encode("latin1") + b" " * pad + b"\n"
+    f.seek(0)
+    f.write(b"\x93NUMPY" + bytes([1, 0]) + len(header).to_bytes(2, "little"))
+    f.write(header)
+
+
+class TfsimStreamWriter:
+    """Stream rows straight into a ``.tfsim`` directory.
+
+    Building ``.fsim`` and converting afterwards writes the library twice
+    and needs all of it in RAM. This writer appends fingerprint rows and
+    string records batch-by-batch with O(batch) memory (offsets stream to
+    disk too), then stamps the final counts into the reserved npy headers
+    on :meth:`close`. Builds atomically under a temp name like
+    :func:`save_native`. The JAX package's writer also writes synthetic and
+    fixed-width-string layouts; ``createdb``, its one caller here, needs
+    neither.
+    """
+
+    def __init__(
+        self,
+        path: str | os.PathLike,
+        bitcount: int = 1024,
+        dbkey: str = "",
+        generator: str = "",
+        overwrite: bool = False,
+    ):
+        self.path = Path(path)
+        self._overwrite = overwrite
+        if self.path.exists() and not overwrite:
+            raise FileExistsError(f"{self.path} already exists")
+        self.bitcount = bitcount
+        self.dbkey = dbkey
+        self.generator = generator
+        self.count = 0
+        self._row_bytes = bitcount // 8
+        self._tmp = self.path.with_name(self.path.name + f".tmp.{os.getpid()}")
+        self._tmp.mkdir(parents=True, exist_ok=False)
+        self._fp = open(self._tmp / "fingerprints.npy", "wb")
+        self._fp.write(b"\0" * _NPY_HEADER_LEN)
+        self._files = {}
+        self._offsets = {}
+        self._tails = {}
+        for field in ("smiles", "ids"):
+            self._files[field] = open(self._tmp / f"{field}.blob", "wb")
+            self._offsets[field] = open(self._tmp / f"{field}.idx.npy", "wb")
+            self._offsets[field].write(b"\0" * _NPY_HEADER_LEN)
+            self._tails[field] = 0
+
+    def append_batch(self, fingerprints: "np.ndarray | bytes", smiles, ids) -> None:
+        """Append rows: packed fingerprint bytes + parallel ``list[bytes]``
+        string batches."""
+        if isinstance(fingerprints, (bytes, bytearray, memoryview)):
+            fp = np.frombuffer(fingerprints, np.uint8)
+        else:
+            fp = np.asarray(fingerprints)
+            if fp.dtype != np.uint8:
+                # np.asarray(arr, np.uint8) would VALUE-truncate packed
+                # uint32 words (every word mod 256) and write a silently
+                # corrupt database; callers with packed words must pass
+                # row-major bytes (e.g. arr.view/astype explicitly)
+                raise TypeError(
+                    f"fingerprints must be raw uint8 bytes, got dtype "
+                    f"{fp.dtype}; reinterpret packed words with "
+                    ".view(np.uint8) (little-endian rows) instead"
+                )
+        fp = np.ascontiguousarray(fp).reshape(-1, self._row_bytes)
+        n = fp.shape[0]
+        self._fp.write(fp.tobytes())
+        for field, strings in (("smiles", smiles), ("ids", ids)):
+            strings = list(strings)
+            if len(strings) != n:
+                raise ValueError(
+                    f"batch mismatch: {n} rows but {len(strings)} {field} records"
+                )
+            pos = self._tails[field]
+            spans = np.empty((n, 2), np.int64)
+            for i, s in enumerate(strings):
+                spans[i] = (pos, pos + len(s))
+                pos += len(s)
+            self._files[field].write(b"".join(strings))
+            self._offsets[field].write(spans.tobytes())
+            self._tails[field] = pos
+        self.count += n
+
+    def close(self) -> None:
+        """Stamp headers, write meta, atomically rename into place."""
+        try:
+            _write_npy_header(self._fp, (self.count, self._row_bytes), "|u1")
+            self._fp.close()
+            fp_meta = {"kind": "npy"}
+            strings_meta = {}
+            for field in ("smiles", "ids"):
+                self._files[field].close()
+                _write_npy_header(self._offsets[field], (self.count, 2), "<i8")
+                self._offsets[field].close()
+                strings_meta[field] = {"kind": "offsets"}
+            (self._tmp / "meta.json").write_text(
+                json.dumps(
+                    {
+                        "format_version": _format_version(strings_meta, fp_meta),
+                        "dbkey": self.dbkey,
+                        "bitcount": self.bitcount,
+                        "count": self.count,
+                        "generator": self.generator,
+                        "strings": strings_meta,
+                        "fingerprints": fp_meta,
+                    }
+                )
+            )
+            _swap_into_place(self._tmp, self.path, self._overwrite)
+        except Exception:
+            self.abort()
+            raise
+
+    def abort(self) -> None:
+        import shutil
+
+        for f in [self._fp, *self._files.values(), *self._offsets.values()]:
+            try:
+                f.close()
+            except OSError:
+                pass
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.close()
+        else:
+            self.abort()
+        return False
+
+
 def is_native(path: str | os.PathLike) -> bool:
     return Path(path).is_dir() and (Path(path) / "meta.json").exists()
 
@@ -255,3 +411,13 @@ def load_any(path: str | os.PathLike) -> FingerprintData:
 
     return read_fsim(path)
 
+
+def convert(src: str | os.PathLike, dst: str | os.PathLike) -> None:
+    """Convert between formats by destination extension (.fsim <-> .tfsim)."""
+    data = load_any(src)
+    if str(dst).endswith(".fsim"):
+        from .fsim import write_fsim
+
+        write_fsim(dst, data)
+    else:
+        save_native(dst, data)

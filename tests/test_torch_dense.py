@@ -15,6 +15,9 @@ card and no JAX::
     python -m pytest --noconftest -m cuda tests/test_torch_dense.py
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -22,7 +25,7 @@ import torch
 
 from gpusimilarity_tpu_torch.ops import dense_phase1 as ph1
 from gpusimilarity_tpu_torch.ops.fold import fold_words
-from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows_np
+from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows, popcount_rows_np
 from gpusimilarity_tpu_torch.parallel import sharded
 
 # name -> (rows, n_valid, queries, cutoffs, similarity, alpha/beta, chunk,
@@ -342,6 +345,27 @@ def test_fewer_blocks_than_k_keeps_every_block():
     assert cnt.tolist() == [300, 300]
 
 
+@pytest.mark.parametrize("b,wf,launches", [
+    (1, 8, 1), (32, 8, 1), (33, 8, 2), (48, 4, 2), (64, 8, 2), (128, 32, 4),
+    (16, 64, 1), (17, 64, 2), (20, 64, 2), (64, 64, 4),
+])
+def test_kernel_launches_counts_one_per_slice_of_the_batch(b, wf, launches):
+    """The C entry walks a batch in slices of 32 queries, 16 at rows over 32
+    words; the launch count counts each slice."""
+    assert ph1.kernel_launches(b, wf) == launches
+
+
+def test_slice_sizes_are_the_c_entrys():
+    """``KERNEL_MAX_QUERIES`` and ``KERNEL_MAX_QUERIES_WIDE`` are the numbers
+    the C entry slices by (``max_queries`` in ``csrc/dense_phase1.cu``)."""
+    src = (Path(ph1.__file__).parent.parent / "csrc" / "dense_phase1.cu").read_text()
+    m = re.search(r"int max_queries\(int wf\) \{ return wf <= (\d+) \? (\d+) : (\d+); \}", src)
+    assert m, "max_queries not found"
+    assert tuple(map(int, m.groups())) == (
+        ph1.KERNEL_MAX_WORDS // 2, ph1.KERNEL_MAX_QUERIES, ph1.KERNEL_MAX_QUERIES_WIDE)
+    assert src.count("max_queries(a.wf)") == 1  # every slice walk uses it
+
+
 @pytest.fixture()
 def cuda_device():
     if not torch.cuda.is_available():
@@ -409,13 +433,39 @@ def test_kernel_forks_match_plain_on_cuda(name, cuda_device):
     Tversky, popless, batches of 1, 5, 32, 48 and 128, rows of 4, 8, 16 and
     32 words, ``n_valid`` off a block boundary."""
     args = _fork_args(name, cuda_device)
+    before = ph1.launch_count()
     bmax, cnt = ph1.dense_phase1(*args)
+    assert ph1.launch_count() - before == ph1.kernel_launches(*args[2].shape)
     pbmax, pcnt = ph1.dense_phase1_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
     assert torch.equal(cnt, pcnt)
     if args[2].shape[0] > 1:
         assert bmax[-1].max().item() == 0.0  # the zero query
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wf", [4, 8, 16, 32, 64])
+def test_launch_count_is_the_kernels_slices_on_cuda(wf, cuda_device):
+    """The built C entry reports the slice size the launch count assumes,
+    and a batch of 40 counts as that many launches."""
+    import ctypes
+
+    from gpusimilarity_tpu_torch.utils import kernels
+
+    fn = kernels.load("dense_phase1").lib.gpusim_dense_phase1_max_queries
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert fn(wf) == (ph1.KERNEL_MAX_QUERIES if wf <= 32 else ph1.KERNEL_MAX_QUERIES_WIDE)
+    rng = np.random.default_rng(wf)
+    words = torch.from_numpy(rng.integers(0, 2**31, (wf, 2048), dtype=np.int32)).to(cuda_device)
+    q = words[:, :40].T.contiguous()
+    before = ph1.launch_count()
+    _bmax, cnt = ph1.dense_phase1(
+        words, None, q, popcount_rows(q), torch.zeros(40, device=cuda_device),
+        torch.ones(2, device=cuda_device), 2048, 256)
+    torch.cuda.synchronize()
+    assert ph1.launch_count() - before == -(-40 // fn(wf)) == ph1.kernel_launches(40, wf)
+    assert cnt.tolist() == [2048] * 40
 
 
 @pytest.mark.cuda

@@ -289,6 +289,27 @@ def test_no_file_of_the_port_imports_the_jax_package(path):
     assert not roots & {"jax", "jaxlib", "gpusimilarity_tpu"}, roots
 
 
+def test_package_data_ships_every_kernel_source_and_header():
+    """An installed (non-editable) port builds its kernels from the package
+    data: every ``.cu`` under ``csrc/`` and every file one of them names in
+    an ``#include "..."`` must match a package-data glob of pyproject.toml."""
+    import fnmatch
+    import re
+    import tomllib
+
+    pyproject = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = pyproject["tool"]["setuptools"]["package-data"]["gpusimilarity_tpu_torch"]
+    csrc = REPO / "gpusimilarity_tpu_torch" / "csrc"
+    needed = {f"csrc/{p.name}" for p in csrc.glob("*.cu")}
+    for path in csrc.iterdir():
+        for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M):
+            assert (csrc / name).is_file(), (path.name, name)
+            needed.add(f"csrc/{name}")
+    assert "csrc/phase1_epilogue.cuh" in needed
+    missing = sorted(n for n in needed if not any(fnmatch.fnmatch(n, g) for g in globs))
+    assert not missing, missing
+
+
 def test_native_library_path_is_the_repositorys():
     """The port's bindings load the repository's own C++ library."""
     from gpusimilarity_tpu_torch.utils import native
