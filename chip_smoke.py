@@ -65,12 +65,29 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     the HTML UI, ``cli.search`` and the FDW; the socket round trip p50 and
     the page time.
 
+(s) the sharded paths, in three places: after (p), the 113,335,291-row
+    bitplane library cut into 4 shards on the card, its answers (B 1 and 32,
+    k 128) equal to the unsharded store's and one launch per shard; after
+    (p2), the fold-4 library's answers taken, its store freed, and the
+    library loaded again over 2 shards (it must resolve fold 4, dense) with
+    answers equal to the unsharded ones; after (g), (d)'s library served in
+    process over 4 bitplane and 2 fold-4 dense shards (answers by (d)'s
+    rules, ``/stats`` counting one launch per shard per request),
+    ``tools/dryrun_multichip`` over 4 shards, then ``cli.server`` as one
+    process and as two processes sharing the card (``--coordinator``):
+    answers by (d)'s rules over HTTP and the socket, each process fed its
+    half, both exiting cleanly. It times each sharded search beside one
+    shard and each server's B=1 round trip over HTTP and the socket.
+
 The main path of each kernel is driven with its launch counter reset just
-before and read just after: the bitplane kernel in (c), (d), (g) and (h),
-the dense kernel in (e) and (f) (the servers' counts come from ``/stats``),
+before and read just after: the bitplane kernel in (c), (d), (g), (h) and
+(s), the dense kernel in (e), (f) and (s) (the servers' counts come from
+``/stats``; the two-process server's from process 0's),
 the matrix-product kernel in the probe of (m), which is the one entry point
-that runs it. Launches made in (b), (b2), (p), (p2) and (m) before the
-probe, to compare or profile, do not count. It prints the card's name and power limit, one JSON line describing
+that runs it. (s) reads its counts around each sharded search and server
+it checks. Launches made in (b), (b2), (p), (p2) and (m) before the probe,
+and in (s)'s unsharded references, timing loops and dry run, to compare or
+profile, do not count. It prints the card's name and power limit, one JSON line describing
 the kernels, the seconds of each phase, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -80,9 +97,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import dataclasses
 import gzip
 import json
 import os
+import re
 import signal
 import socket
 import statistics
@@ -680,43 +699,62 @@ def _port_env() -> dict:
 
 
 @contextlib.contextmanager
-def serving(paths, server_args, tag, socket_dir=None):
+def serving(paths, server_args, tag, socket_dir=None, processes=1, logs=None):
     """Run ``python -m gpusimilarity_tpu_torch.cli.server`` on ``paths`` and
     yield its HTTP port once it prints ``ready``; stop it on exit. Its
-    ``--socket_name`` socket goes in ``socket_dir`` (its ``TMPDIR``)."""
+    ``--socket_name`` socket goes in ``socket_dir`` (its ``TMPDIR``). With
+    ``processes`` > 1 it runs a multi-process job on this machine
+    (``--coordinator``), waits for every worker's ``ready`` too, and SIGINT
+    to process 0 shuts the job down; ``logs`` then gets each process's exit
+    code and stderr lines."""
     port = _free_port()
     env = _port_env()
     if socket_dir is not None:
         env["TMPDIR"] = str(socket_dir)
+    job = []
+    if processes > 1:
+        job = ["--coordinator", f"127.0.0.1:{_free_port()}",
+               "--num_processes", str(processes)]
     t0 = time.monotonic()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server",
-         *map(str, paths), "--port", str(port), *server_args],
-        cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True,
-    )
-    lines: list[str] = []
-    ready = threading.Event()
+    procs, lines, ready = [], [], []
+    for pid in range(processes):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server",
+             *map(str, paths), "--port", str(port), *server_args, *job,
+             *(["--process_id", str(pid)] if job else [])],
+            cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True,
+        )
+        procs.append(proc)
+        lines.append([])
+        ready.append(threading.Event())
+        marker = "ready on" if pid == 0 else f"worker {pid} ready"
 
-    def pump():
-        for line in proc.stderr:
-            lines.append(line)
-            if "ready on" in line:
-                ready.set()
+        def pump(proc=proc, out=lines[-1], event=ready[-1], marker=marker):
+            for line in proc.stderr:
+                out.append(line)
+                if marker in line:
+                    event.set()
 
-    threading.Thread(target=pump, daemon=True).start()
+        threading.Thread(target=pump, daemon=True).start()
     try:
-        while not ready.wait(1.0):
-            check(proc.poll() is None, "server exited:\n" + "".join(lines[-30:]))
+        while not all(e.wait(1.0) for e in ready):
+            for pid, proc in enumerate(procs):
+                check(proc.poll() is None,
+                      f"server process {pid} exited:\n" + "".join(lines[pid][-30:]))
             check(time.monotonic() - t0 < 600, "server not ready in 600 s")
-        log(f"[{tag}] server ready in {time.monotonic() - t0:.2f}s")
+        log(f"[{tag}] server ready in {time.monotonic() - t0:.2f}s"
+            + (f" ({processes} processes)" if processes > 1 else ""))
         yield port
     finally:
-        proc.send_signal(signal.SIGINT)
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=30)
+        procs[0].send_signal(signal.SIGINT)
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        if logs is not None:
+            logs.extend((proc.returncode, out) for proc, out in zip(procs, lines))
 
 
 def phase_server(device, path, n_rows, server_args=(), fold=1, tag="d",
@@ -900,7 +938,7 @@ def phase_folded_library(device, n_rows, tmp):
     """(e) Write a synthetic .tfsim and load it through the registry with
     no fold or mode given."""
     from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
-    from gpusimilarity_tpu_torch.parallel.mesh import available_device_memory
+    from gpusimilarity_tpu_torch.parallel.mesh import Mesh, available_device_memory
     from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
     from gpusimilarity_tpu_torch.utils.strings import ConstantStringTable
     from gpusimilarity_tpu_torch.utils.synth import VirtualFingerprints
@@ -913,7 +951,7 @@ def phase_folded_library(device, n_rows, tmp):
         smiles=ConstantStringTable(b"C", n_rows),
         ids=ConstantStringTable(b"ENAMINE", n_rows),
     ))
-    free = available_device_memory(device)
+    free = available_device_memory(Mesh([device]))
     log(f"[e] synthetic .tfsim of {n_rows:,} rows x 1024 bits "
         f"({n_rows * 128 / 1e9:.2f} GB at full width); free device memory "
         f"{free / 1e9 if free else float('nan'):.2f} GB")
@@ -922,10 +960,11 @@ def phase_folded_library(device, n_rows, tmp):
     sync(device)
     build_s = time.monotonic() - t0
     db = reg.get("enamine")
-    free = available_device_memory(device)
+    free = available_device_memory(reg.mesh)
+    store = db.store.shards[0]
     log(f"[e] registry resolved fold {db.fold_factor}, scan mode {db.scan_mode}; "
-        f"store {db.store.nbytes:,} bytes ({db.store.word_count} words/row, "
-        f"popcounts {'no' if db.store.popcounts is None else 'yes'}); built in "
+        f"store {store.nbytes:,} bytes ({store.word_count} words/row, "
+        f"popcounts {'no' if store.popcounts is None else 'yes'}); built in "
         f"{build_s:.2f}s; free device memory "
         f"{free / 1e9 if free else float('nan'):.2f} GB")
     check(db.fold_factor == 4 and db.scan_mode == "dense",
@@ -976,7 +1015,7 @@ def phase_folded_engine(db, device, reps=(5, 3)):
     )
     from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
 
-    n, store, fold = db.count, db.store, db.fold_factor
+    n, store, fold = db.count, db.store.shards[0], db.fold_factor
     rows = pick_query_rows(32, n, fold, seed=SEED)
     qfull = virtual_rows_np(rows, seed=SEED)
     qf = np.ascontiguousarray(fold_words(qfull, fold))
@@ -1020,7 +1059,8 @@ def phase_folded_engine(db, device, reps=(5, 3)):
 
     # one popless engine search: the same words, no popcount array
     pdb = copy.copy(db)
-    pdb._store = DenseStore(words=store.words, popcounts=None, n_valid=n)
+    pdb._store = dataclasses.replace(db.store, shards=(
+        DenseStore(words=store.words, popcounts=None, n_valid=n),))
     pdb.popless = True
     pres = pdb.search_batch(qfull, 128, cut32, db.dbkey, return_indices=True)
     for p_r, r in zip(pres, results[(32, 128)]):
@@ -1202,8 +1242,8 @@ def phase_bitplane_fold(device, n_rows, fold=4):
     db = FingerprintDB(data, device=device, fold_factor=fold, scan_mode="bitplane")
     sync(device)
     log(f"[g] bitplane store of {n_rows:,} virtual rows at fold {fold}: "
-        f"{db.store.planes.shape[0]} planes, {db.store.nbytes:,} bytes, built in "
-        f"{time.monotonic() - t0:.2f}s")
+        f"{db.store.shards[0].planes.shape[0]} planes, {db.store.nbytes:,} bytes, "
+        f"built in {time.monotonic() - t0:.2f}s")
     rows = pick_query_rows(32, n_rows, fold, seed=SEED, rng_seed=SEED + 9)
     qfull = virtual_rows_np(rows, seed=SEED)
     cut = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
@@ -1226,6 +1266,302 @@ def phase_bitplane_fold(device, n_rows, fold=4):
         f"search_batch {ms:.3f} ms (host clock, rescore included); "
         f"bitplane launches {launches}")
     return launches
+
+
+S_BITPLANE_SHARDS = 4  # (s): shards of the 113,335,291-row bitplane library
+S_DENSE_SHARDS = 2  # (s): shards of the 1,020,017,472-row fold-4 library
+S_ROUND_TRIPS = 50  # (s): B=1 requests per server for each p50
+
+
+def _one_shard(store, device):
+    """An unsharded store as the one shard of a one-device mesh."""
+    from gpusimilarity_tpu_torch.parallel.mesh import Mesh
+    from gpusimilarity_tpu_torch.parallel.sharded import ShardedStore
+
+    return ShardedStore(shards=(store,), row0s=(0,), n_valid=store.n_valid,
+                        n_shards=1, per_shard=store.n_padded, mesh=Mesh([device]))
+
+
+def _host_ms(fn, reps):
+    """Median host-clock ms of ``fn`` (which returns host tensors, so each
+    call ends synchronised), after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_sharded_bitplane(rows, store, device, reps=10):
+    """(s) The 113,335,291-row bitplane library cut into 4 shards on the
+    card, searched through ``sharded_local_topk`` against the unsharded
+    store's answers to the same queries: equal scores, equal summed counts,
+    every index carrying its score; one kernel launch per shard; the
+    search's wall time at 4 shards and at 1. Returns the times and the
+    launches."""
+    from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
+    from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
+    from gpusimilarity_tpu_torch.ops.scan import (
+        popcount_rows,
+        popcount_rows_np,
+        similarity_from_counts,
+    )
+    from gpusimilarity_tpu_torch.parallel.mesh import make_mesh
+    from gpusimilarity_tpu_torch.parallel.sharded import (
+        build_sharded_store,
+        sharded_local_topk,
+    )
+
+    n = store.n_valid
+    t0 = time.monotonic()
+    four = build_sharded_store(rows, make_mesh([device] * S_BITPLANE_SHARDS), "bitplane")
+    sync(device)
+    log(f"[s] {n:,} rows in {S_BITPLANE_SHARDS} bitplane shards on one card "
+        f"(spans of {four.per_shard:,} rows): built in {time.monotonic() - t0:.2f}s, "
+        f"{four.nbytes:,} bytes against {store.nbytes:,} unsharded")
+    one = _one_shard(store, device)
+    pops = store.popcounts[:n]
+    idx = pick_queries(rows, pops, n, 32, 64, SEED + 5)
+    q32 = rows[idx].cpu().numpy().view(np.uint32)
+    cut32 = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
+    out, launches = {}, 0
+    for b in (1, 32):
+        q, cut = q32[:b], cut32[:b]
+        plane_idx, _bucket = query_plane_indices(q, store.bitcount)
+        qp = popcount_rows_np(q)
+        v1, _i1, c1 = sharded_local_topk(one, plane_idx, qp, cut, 128)
+        before = ph1.launch_count()
+        v4, i4, c4 = sharded_local_topk(four, plane_idx, qp, cut, 128)
+        sync(device)
+        per_search = ph1.launch_count() - before
+        launches += per_search
+        check(per_search == S_BITPLANE_SHARDS,
+              f"[s] B={b}: {per_search} launches for {S_BITPLANE_SHARDS} shards")
+        check(torch.equal(v4, v1), f"[s] B={b}: 4-shard scores differ from 1 shard")
+        check(tuple(c4.shape) == (S_BITPLANE_SHARDS, b)
+              and torch.equal(c4.sum(0), c1.sum(0)), f"[s] B={b}: counts differ")
+        qt = torch.from_numpy(q.view(np.int32)).to(device)
+        gi = i4.to(device)
+        common = popcount_rows(rows[gi] & qt[:, None, :])
+        rescored = similarity_from_counts(common, pops[gi], popcount_rows(qt))
+        check(bool((gi >= 0).all()) and torch.equal(rescored.cpu(), v4),
+              f"[s] B={b}: returned indices do not carry their scores")
+        ms1 = _host_ms(lambda: sharded_local_topk(one, plane_idx, qp, cut, 128), reps)
+        ms4 = _host_ms(lambda: sharded_local_topk(four, plane_idx, qp, cut, 128), reps)
+        out[b] = (ms1, ms4)
+        log(f"[s] bitplane B={b} k=128: 4 shards exact against 1 shard "
+            f"(count[0]={int(c4[:, 0].sum())}, {per_search} launches); wall "
+            f"(host clock, median of {reps}) 1 shard {ms1:.3f} ms, "
+            f"{S_BITPLANE_SHARDS} shards {ms4:.3f} ms")
+    del four
+    return out, launches
+
+
+def dense_reference(db, device, reps=5):
+    """(s) The unsharded fold-4 library's answers to (s)'s queries, and its
+    ``sharded_local_topk`` wall time, before the store is freed."""
+    from gpusimilarity_tpu_torch.models.fingerprint_db import _k_bucket
+    from gpusimilarity_tpu_torch.ops.fold import fold_words, overfetch_count
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.parallel.sharded import sharded_local_topk
+    from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
+
+    rows = pick_query_rows(32, db.count, db.fold_factor, seed=SEED, rng_seed=SEED + 21)
+    qfull = virtual_rows_np(rows, seed=SEED)
+    qf = np.ascontiguousarray(fold_words(qfull, db.fold_factor))
+    cut = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
+    k_fetch = _k_bucket(overfetch_count(128, db.fold_factor), db.count)
+    ref = {"rows": rows, "qfull": qfull, "qf": qf, "cut": cut, "k_fetch": k_fetch,
+           "answers": {}, "ms": {}}
+    for b in (1, 32):
+        ref["answers"][b] = [
+            (r.scores, r.indices, r.approximate_count)
+            for r in db.search_batch(qfull[:b], 128, cut[:b], db.dbkey,
+                                     return_indices=True)
+        ]
+        args = (qf[:b].view(np.int32), popcount_rows_np(qf[:b]), cut[:b], k_fetch)
+        ref["ms"][b] = _host_ms(lambda: sharded_local_topk(db.store, *args), reps)
+    return ref
+
+
+def phase_sharded_dense(path, ref, device, reps=5):
+    """(s) The 1,020,017,472-row library loaded again through the registry
+    on a mesh of 2 shards on the card (the unsharded store freed first): it
+    must resolve fold 4, dense, as unsharded (free memory counts the card
+    once); its engine answers equal the unsharded ones exactly (dense:
+    scores, indices and counts); one kernel launch per shard per 32-query
+    slice; the wall time at 2 shards beside 1. Returns times, launches."""
+    from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
+    from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.parallel.mesh import make_mesh
+    from gpusimilarity_tpu_torch.parallel.sharded import sharded_local_topk
+
+    t0 = time.monotonic()
+    reg = DatabaseRegistry.from_fsim_files(
+        [str(path)], mesh=make_mesh([device] * S_DENSE_SHARDS))
+    sync(device)
+    db = reg.get("enamine")
+    log(f"[s] {db.count:,} rows in {S_DENSE_SHARDS} shards on one card: fold "
+        f"{db.fold_factor}, {db.scan_mode}, {db.store.nbytes:,} bytes, built in "
+        f"{time.monotonic() - t0:.2f}s")
+    check(db.fold_factor == 4 and db.scan_mode == "dense",
+          f"[s] expected fold 4 dense, got fold {db.fold_factor} {db.scan_mode}")
+    out, launches = {}, 0
+    qf, cut, k_fetch = ref["qf"], ref["cut"], ref["k_fetch"]
+    for b in (1, 32):
+        before = ph2.launch_count()
+        res = db.search_batch(ref["qfull"][:b], 128, cut[:b], db.dbkey,
+                              return_indices=True)
+        per_search = ph2.launch_count() - before
+        launches += per_search
+        check(per_search == S_DENSE_SHARDS * -(-b // 32),
+              f"[s] B={b}: {per_search} dense launches for {S_DENSE_SHARDS} shards")
+        got = [(r.scores, r.indices, r.approximate_count) for r in res]
+        check(got == ref["answers"][b],
+              f"[s] B={b}: 2-shard answers differ from the unsharded ones")
+        check(all(r.indices[0] == int(row) and r.scores[0] == 1.0
+                  for r, row in zip(res, ref["rows"])), "[s] self row not first")
+        args = (qf[:b].view(np.int32), popcount_rows_np(qf[:b]), cut[:b], k_fetch)
+        ms2 = _host_ms(lambda: sharded_local_topk(db.store, *args), reps)
+        out[b] = (ref["ms"][b], ms2)
+        log(f"[s] fold 4 dense B={b} k=128 (k_fetch {k_fetch}): answers equal "
+            f"the unsharded engine's; {per_search} launches; wall of the store "
+            f"search (host clock, median of {reps}) 1 shard {ref['ms'][b]:.3f} ms, "
+            f"{S_DENSE_SHARDS} shards {ms2:.3f} ms")
+    del db, reg
+    return out, launches
+
+
+def phase_sharded_server_stats(device, path):
+    """(s) (d)'s library served in process over a 4-shard bitplane mesh and
+    a 2-shard fold-4 dense mesh on the card: answers exact by (d)'s rules,
+    ``/stats`` reporting the shards and counting one launch per shard per
+    request. Returns each kernel's launches over the checked requests, read
+    from ``/stats``."""
+    from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
+    from gpusimilarity_tpu_torch.parallel.mesh import make_mesh
+    from gpusimilarity_tpu_torch.serve.server import SimilarityServer
+
+    rows, pops = server_rows(device, SERVER_ROWS)
+    served = {}
+    for shards, fold, kernel in ((S_BITPLANE_SHARDS, None, "bitplane_phase1"),
+                                 (S_DENSE_SHARDS, 4, "dense_phase1")):
+        reg = DatabaseRegistry.from_fsim_files(
+            [str(path)], mesh=make_mesh([device] * shards), fold_factor=fold)
+        srv = SimilarityServer(reg, port=0, window_ms=50.0)
+        srv.start_background()
+        try:
+            stats = _get(srv.port, "/stats")
+            check(stats["databases"]["smoke"]["shards"] == shards,
+                  f"[s] /stats shards {stats['databases']['smoke']['shards']}")
+            l_start = stats["kernel_launches"][kernel]
+            _check_requests(srv.port, rows, pops, device, fold or 1, "s")
+            l0 = _get(srv.port, "/stats")["kernel_launches"][kernel]
+            for i in (11, SERVER_ROWS // 7, SERVER_ROWS - 1):
+                _post(srv.port, {
+                    "fp_hex": rows[i].cpu().numpy().view(np.uint8).tobytes().hex(),
+                    "return_count": 20, "dbnames": "smoke", "dbkeys": "smoke"})
+            stats = _get(srv.port, "/stats")
+            launches = stats["kernel_launches"][kernel] - l0
+            check(launches == 3 * shards,
+                  f"[s] /stats: {launches} {kernel} launches for 3 requests on "
+                  f"{shards} shards")
+            served[kernel] = stats["kernel_launches"][kernel] - l_start
+            mode = stats["databases"]["smoke"]["scan_mode"]
+            log(f"[s] /stats on {shards} shards ({mode}, "
+                f"fold {fold or 1}): answers exact; 3 requests, {launches} "
+                f"{kernel} launches")
+        finally:
+            srv.close()
+        del reg
+    return served
+
+
+def _round_trips(port, sock, rows, n_rows):
+    """Median ms of ``S_ROUND_TRIPS`` B=1 self-queries (k=20) over HTTP and
+    over the socket, one at a time."""
+    rng = np.random.default_rng(SEED + 23)
+    picks = [int(i) for i in rng.integers(0, n_rows, S_ROUND_TRIPS)]
+    http, sockt = [], []
+    for i in picks:
+        form = {"fp_hex": rows[i].cpu().numpy().view(np.uint8).tobytes().hex(),
+                "return_count": 20, "dbnames": "smoke", "dbkeys": "smoke"}
+        t0 = time.perf_counter()
+        reply = _post(port, form)
+        http.append((time.perf_counter() - t0) * 1e3)
+        check(reply["results"][0][0] == f"SMK{i:08d}", "[s] HTTP self-query")
+    with SocketClient(sock) as client:
+        for rn, i in enumerate(picks, 1):
+            payload = encode_socket_request([("smoke", "smoke")], rn, 20, 0.0,
+                                            rows[i].cpu().numpy().tobytes())
+            t0 = time.perf_counter()
+            _rn, _approx, _smiles, ids, _scores = client.ask(payload)
+            sockt.append((time.perf_counter() - t0) * 1e3)
+            check(ids[0] == f"SMK{i:08d}", "[s] socket self-query")
+    return statistics.median(http), statistics.median(sockt)
+
+
+def phase_two_process_server(device, path, tmp, server_args=()):
+    """(s) ``cli.server`` on (d)'s library as one process, then as two
+    processes sharing the card (``--coordinator``): the two-process
+    answers exact by (d)'s rules over HTTP and the socket, each process fed
+    its half of the fingerprint bytes, both exiting cleanly; the HTTP and
+    socket B=1 round-trip p50 of each. Returns the p50s and process 0's
+    bitplane launches."""
+    from gpusimilarity_tpu_torch.parallel.sharded import (
+        SELECT_BLOCK_COLS,
+        plan_shard_spans,
+    )
+
+    rows, pops = server_rows(device, SERVER_ROWS)
+    sock_dir = Path(tmp) / "s"
+    sock_dir.mkdir(exist_ok=True)
+    sock = sock_dir / SOCKET_NAME
+    p50, launches = {}, 0
+    for processes in (1, 2):
+        logs = []
+        with serving([path], ["--socket_name", SOCKET_NAME, *server_args], "s",
+                     sock_dir, processes=processes, logs=logs) as port:
+            stats = _get(port, "/stats")
+            check(stats["processes"] == processes
+                  and stats["databases"]["smoke"]["shards"] == processes,
+                  f"[s] /stats of the {processes}-process server: {stats}")
+            if processes == 2:
+                l0 = stats["kernel_launches"]["bitplane_phase1"]
+                _check_requests(port, rows, pops, device, 1, "s")
+                _check_socket_requests(sock, rows, pops, device, 1, "s")
+                launches = _get(port, "/stats")["kernel_launches"]["bitplane_phase1"] - l0
+            p50[processes] = _round_trips(port, sock, rows, SERVER_ROWS)
+        log(f"[s] {processes}-process server, B=1 k=20 round trip p50 over "
+            f"{S_ROUND_TRIPS} requests: HTTP {p50[processes][0]:.3f} ms, socket "
+            f"{p50[processes][1]:.3f} ms")
+        if processes == 2:
+            spans = plan_shard_spans(SERVER_ROWS, 2, SELECT_BLOCK_COLS)
+            for pid, (rc, lines) in enumerate(logs):
+                check(rc == 0, f"[s] server process {pid} exited {rc}:\n"
+                      + "".join(lines[-20:]))
+                fed = [int(m.group(1)) for m in map(
+                    re.compile(r"worker \d+: smoke fed (\d+) fp bytes").search,
+                    lines) if m]
+                lo, hi = spans[pid]
+                check(fed == [(hi - lo) * 128],
+                      f"[s] process {pid} fed {fed}, its span is {(hi - lo) * 128}")
+                log(f"[s] process {pid}: fed {fed[0]:,} fp bytes (rows "
+                    f"[{lo:,}, {hi:,})), exited 0")
+    return p50, launches
+
+
+def phase_dryrun(device):
+    """(s) ``tools/dryrun_multichip`` over 4 shards on the card."""
+    from gpusimilarity_tpu_torch.tools import dryrun_multichip
+    from gpusimilarity_tpu_torch.parallel.mesh import make_mesh
+
+    done = dryrun_multichip.dryrun_multichip(make_mesh([device] * 4))
+    log(f"[s] dryrun_multichip(4) on {device}: " + "; ".join(done))
 
 
 H_SMILES = 100_000  # (h): compounds of the SMILES library createdb builds
@@ -1613,6 +1949,12 @@ def main() -> int:
         check(engine_launches > 0, "(c) launched no kernel")
     with phase("p"):
         phase_profile(rows, store, device)
+    with phase("s"):
+        # (s) counts the launches of the sharded searches it checks, each read
+        # around its search: the unsharded references, the timing loops and
+        # the dry run count nowhere
+        s_bitplane, s_bitplane_launches = phase_sharded_bitplane(rows, store, device)
+        s_launches = {"bitplane_phase1": s_bitplane_launches, "dense_phase1": 0}
     del store
     torch.cuda.empty_cache()
 
@@ -1648,11 +1990,18 @@ def main() -> int:
             check(dense_engine_launches > 0, "(e) launched no dense kernel")
         with phase("b2"):
             before = ph2.launch_count()
-            max_err2, timing2 = phase_dense_kernel_vs_plain(db.store, device)
+            max_err2, timing2 = phase_dense_kernel_vs_plain(db.store.shards[0], device)
             check(ph2.launch_count() > before, "(b2) launched no kernel")
         with phase("p2"):
-            phase_profile_dense(db.store, device)
+            phase_profile_dense(db.store.shards[0], device)
+        with phase("s"):
+            dense_ref = dense_reference(db, device)
         del db
+        torch.cuda.empty_cache()
+        with phase("s"):
+            s_dense, s_dense_launches = phase_sharded_dense(
+                Path(tmp) / "enamine.tfsim", dense_ref, device)
+            s_launches["dense_phase1"] += s_dense_launches
     torch.cuda.empty_cache()
 
     with phase("f"):
@@ -1669,6 +2018,16 @@ def main() -> int:
         check(fold_launches > 0, "(g) launched no kernel")
     torch.cuda.empty_cache()
 
+    with phase("s"):
+        for kernel, n in phase_sharded_server_stats(device, smoke_path).items():
+            s_launches[kernel] += n
+        phase_dryrun(device)
+        p50, two_process_launches = phase_two_process_server(
+            device, smoke_path, run_tmp.name)
+        s_launches["bitplane_phase1"] += two_process_launches
+        check(all(s_launches.values()), f"(s) launched no kernel: {s_launches}")
+    torch.cuda.empty_cache()
+
     with phase("h"):
         built = phase_createdb(run_tmp.name)
         entry_points = phase_entrypoints(device, run_tmp.name, smoke_path, built)
@@ -1676,8 +2035,18 @@ def main() -> int:
 
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}, entry points "
-        f"{entry_points['launches']}; dense engine {dense_engine_launches}, "
-        f"server {folded_server_launches}; matrix-product probe {probe_launches}")
+        f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}; "
+        f"dense engine {dense_engine_launches}, server {folded_server_launches}, "
+        f"sharded {s_launches['dense_phase1']}; matrix-product probe "
+        f"{probe_launches}")
+    log(f"sharded ({gpu_line()}): bitplane {LIB_ROWS:,} rows, 1 -> "
+        f"{S_BITPLANE_SHARDS} shards on one card: "
+        + ", ".join(f"B={b} {a:.3f} -> {c:.3f} ms" for b, (a, c) in s_bitplane.items())
+        + f"; fold 4 dense {FOLDED_ROWS:,} rows, 1 -> {S_DENSE_SHARDS} shards: "
+        + ", ".join(f"B={b} {a:.3f} -> {c:.3f} ms" for b, (a, c) in s_dense.items())
+        + "; server B=1 round trip p50, 1 -> 2 processes: HTTP "
+        f"{p50[1][0]:.3f} -> {p50[2][0]:.3f} ms, socket {p50[1][1]:.3f} -> "
+        f"{p50[2][1]:.3f} ms")
     log(f"entry points ({gpu_line()}): createdb "
         f"{entry_points['createdb_rates'][0]:.0f} compounds/s to .fsim, "
         f"{entry_points['createdb_rates'][1]:.0f} to .tfsim; socket round trip "
@@ -1714,11 +2083,12 @@ def main() -> int:
         "dense_ms_same_store": mxu["dense_ms"],
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
-               + entry_points["launches"], max_err, timing)
+               + entry_points["launches"] + s_launches["bitplane_phase1"],
+               max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
-    k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches,
-               max(max_err2, fold_err), timing2)
+    k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches
+               + s_launches["dense_phase1"], max(max_err2, fold_err), timing2)
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,25 +1,35 @@
-"""Run the similarity-search HTTP service on one GPU (twin of
+"""Run the similarity-search HTTP service on the GPUs (twin of
 ``gpusimilarity_tpu/cli/server.py``)::
 
     python -m gpusimilarity_tpu_torch.cli.server db.fsim [more.fsim ...] --port 8080 \
         [--socket_name gpusimilarity] [--http_interface]
 
-The device is the first CUDA card; without one the server raises, unless
-``--cpu_only`` asks for the plain PyTorch path on the host. Both phase-1
-kernels are built (or loaded from their cached builds) before the server
-prints ``ready``. ``--fold``, ``--gpu_bitcount``, ``--scan_mode`` and
-``--popless`` choose the store as in the JAX server; a library too large
-for the card is folded and served dense. ``--socket_name`` also serves the
-reference's binary protocol on ``$TMPDIR/<name>``, ``--http_interface`` the
-debug HTML UI, and ``--search_timeout_s`` bounds each request's wait.
+The library shards over every visible CUDA card; without one the server
+raises, unless ``--cpu_only`` asks for the plain PyTorch path on the host.
+Both phase-1 kernels are built (or loaded from their cached builds) before
+the server prints ``ready``. ``--fold``, ``--gpu_bitcount``, ``--scan_mode``
+and ``--popless`` choose the store as in the JAX server; a library too
+large for the cards is folded and served dense. ``--socket_name`` also
+serves the reference's binary protocol on ``$TMPDIR/<name>``,
+``--http_interface`` the debug HTML UI, and ``--search_timeout_s`` bounds
+each request's wait.
+
+Multi-process serving, one process per host (or several sharing a card)::
+
+    python -m gpusimilarity_tpu_torch.cli.server db.fsim --coordinator host:port \
+        --num_processes 2 --process_id {0,1}
+
+Every process loads its span of the library onto its cards; process 0
+serves HTTP and the socket and fans each search out to the others
+(``parallel/multihost.MultihostController``), which print ``worker <i>:
+<name> fed <n> fp bytes`` and ``tpusimilarity worker <i> ready`` and serve
+until process 0 shuts down.
 
 The JAX server's other flags have no counterpart here: ``--pallas`` (the
 CUDA kernels are the only device path), ``--no_warmup``,
 ``--warmup_batch``, ``--warmup_ks`` and ``--jax_cache_dir`` (PyTorch
-compiles no program per shape, so there is nothing to warm or cache),
-``--jax_profiler_port`` (``torch.profiler`` traces in process), and
-``--coordinator``, ``--num_processes`` and ``--process_id``, which belong
-to the multi-host mode the port does not have yet.
+compiles no program per shape, so there is nothing to warm or cache) and
+``--jax_profiler_port`` (``torch.profiler`` traces in process).
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ SERVING_KERNELS = ("bitplane_phase1", "dense_phase1")
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="tpusimilarity server (PyTorch/CUDA port) — load "
-        "fingerprint databases onto one GPU and answer similarity searches "
+        "fingerprint databases onto the GPUs and answer similarity searches "
         "over HTTP/JSON."
     )
     parser.add_argument("dbnames", nargs="+", help=".fsim files to serve")
@@ -83,6 +93,16 @@ def parse_args(argv=None):
         help="also serve the reference's binary local-socket protocol on "
         "$TMPDIR/<name> (the reference backend used 'gpusimilarity')",
     )
+    parser.add_argument(
+        "--coordinator", default="",
+        help="multi-process mode: host:port of process 0's rendezvous (run "
+        "one server per host with --num_processes/--process_id; the library "
+        "shards over every process's cards)",
+    )
+    parser.add_argument("--num_processes", default=1, type=int,
+                        help="total processes in the multi-process job")
+    parser.add_argument("--process_id", default=0, type=int,
+                        help="this process's rank in the multi-process job")
     return parser.parse_args(argv)
 
 
@@ -93,10 +113,14 @@ def main(argv=None):
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         stream=sys.stderr,
     )
-    from ..parallel.mesh import select_device
+    from ..parallel import multihost
+    from ..parallel.mesh import make_mesh
 
-    device = select_device(cpu_only=args.cpu_only)
-    if device.type == "cuda":
+    if args.coordinator:
+        multihost.initialize(args.coordinator, args.num_processes, args.process_id)
+
+    mesh = make_mesh(["cpu"] if args.cpu_only else None)
+    if not args.cpu_only:
         from ..utils import kernels
 
         # the kernels the searches launch; the probe's matrix-product
@@ -111,9 +135,27 @@ def main(argv=None):
     from ..serve.server import SimilarityServer
 
     registry = DatabaseRegistry.from_fsim_files(
-        args.dbnames, device=device, device_bitcount=args.device_bitcount,
+        args.dbnames, mesh=mesh, device_bitcount=args.device_bitcount,
         fold_factor=args.fold, scan_mode=args.scan_mode, popless=args.popless,
     )
+    # multi-process: process 0 serves and fans each request out through the
+    # controller; the others execute the broadcast requests in a loop
+    controller = None
+    if mesh.n_processes > 1:
+        controller = multihost.MultihostController(
+            registry, max_batch=args.max_batch
+        )
+        for name in registry.names():
+            print(f"worker {mesh.process_index}: {name} fed "
+                  f"{registry.get(name).loaded_fp_bytes} fp bytes",
+                  file=sys.stderr, flush=True)
+        if mesh.process_index != 0:
+            print(f"tpusimilarity worker {mesh.process_index} ready",
+                  file=sys.stderr, flush=True)
+            controller.serve_worker()
+            multihost.finalize()
+            return
+        registry.multihost_controller = controller
     server = SimilarityServer(
         registry,
         hostname=args.hostname,
@@ -124,9 +166,11 @@ def main(argv=None):
         socket_name=args.socket_name or None,
         search_timeout_s=args.search_timeout_s,
     )
+    devices = ", ".join(map(str, mesh.distinct_devices))
     print(
         f"tpusimilarity ready on {args.hostname}:{server.port} "
-        f"({', '.join(registry.names())}; {device})",
+        f"({', '.join(registry.names())}; {mesh.n_shards} shards, "
+        f"{mesh.n_processes} processes; {devices})",
         file=sys.stderr, flush=True,
     )
     try:
@@ -135,6 +179,9 @@ def main(argv=None):
         pass
     finally:
         server.close()
+        if controller is not None:
+            controller.shutdown()
+            multihost.finalize()
 
 
 if __name__ == "__main__":

@@ -380,6 +380,8 @@ cudaError_t launch(const void* planes, const void* pops, const void* plane_idx,
     if (err != cudaSuccess) return err;
     auto* kernel = tversky ? bitplane_phase1_kernel<NB, true>
                            : bitplane_phase1_kernel<NB, false>;
+    // The attribute and the launch below apply to the thread's current
+    // device; the Python wrapper makes that the tensors' device.
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

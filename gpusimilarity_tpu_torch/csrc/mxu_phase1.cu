@@ -488,15 +488,20 @@ struct Args {
     cudaStream_t stream;
 };
 
+// The current device's SM count, cached per device: a process may serve
+// shards on several cards (a benign race: every writer stores the same value).
 int sm_count() {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (sms <= 0) sms = 1;
-    }
-    return sms;
+    constexpr int kMaxDevices = 64;
+    static int cached[kMaxDevices] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    const bool cache = dev >= 0 && dev < kMaxDevices;
+    if (cache && cached[dev] > 0) return cached[dev];
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+    if (cache) cached[dev] = n;
+    return n;
 }
 
 template <int MT, int HR>
@@ -504,6 +509,8 @@ cudaError_t launch(const Args& a) {
     auto* kernel = a.tversky ? mxu_phase1_kernel<MT, HR, true>
                              : mxu_phase1_kernel<MT, HR, false>;
     constexpr size_t smem = smem_bytes<MT>();
+    // The attribute and the launch below apply to the thread's current
+    // device; the Python wrapper makes that the tensors' device.
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

@@ -3,16 +3,18 @@ of ``gpusimilarity_tpu/models/fingerprint_db.py``).
 
 Ported: construction and upload of the bitplane and dense stores (with or
 without popcounts, folded or not, from packed rows or generated on the
-device for a synthetic library), ``search``, ``search_batch`` (a ``(B, W)``
-batch with per-query k and cutoff in one kernel launch), ``_assemble`` with
-the exact full-width rescore of folded-scan candidates, and the fetch-width
-rule ``_k_bucket``.
+device for a synthetic library), sharded over a mesh of devices and of
+processes (each process reads and uploads only its shards' rows, and string
+tables held in RAM are cut to its span), ``search``, ``search_batch`` (a
+``(B, W)`` batch with per-query k and cutoff in one kernel launch per
+shard), ``_assemble`` with the exact full-width rescore of folded-scan
+candidates, and the fetch-width rule ``_k_bucket``.
 
 Not ported, because PyTorch runs eagerly and has no compile latency to
 hide: ahead-of-time precompiles, serving-time k promotion, background
 compiles, warmup pins and batch-size buckets. Not ported because a card
-holds the library whole: the page-cache prewarm of memory-mapped rescore
-sources and the multi-host feed.
+holds its shards whole: the page-cache prewarm of memory-mapped rescore
+sources.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from ..ops.bitplane_phase1 import KERNEL_MAX_PLANES
 from ..ops.dense_phase1 import KERNEL_MAX_WORDS
 from ..ops.scan import TANIMOTO, popcount_rows_np, scores_np
 from ..parallel import sharded
-from ..parallel.mesh import resolve_device
+from ..parallel import multihost
+from ..parallel.mesh import Mesh, resolve_mesh
 from ..utils import native, synth
 from ..utils.fsim import FingerprintData
 from .results import SearchResult
@@ -94,7 +97,7 @@ def check_kernel_width(device_type: str, scan_mode: str, device_bitcount: int) -
 
 
 class FingerprintDB:
-    """One fingerprint library resident on one device."""
+    """One fingerprint library resident on a mesh of devices."""
 
     def __init__(
         self,
@@ -103,18 +106,20 @@ class FingerprintDB:
         fold_factor: int = 1,
         scan_mode: str = "bitplane",
         popless: bool = False,
+        mesh: Mesh | None = None,
     ):
         """``scan_mode``: ``"bitplane"`` stores the library bit-transposed
         and reads only each query's set-bit planes (kernel 1); ``"dense"``
         stores the packed words planar and reads every word (kernel 2).
-        ``popless=True`` (dense only) keeps no popcount array on the card:
-        the scan recomputes column popcounts from the words it reads.
+        ``popless=True`` (dense, one process) keeps no popcount array on the
+        card: the scan recomputes column popcounts from the words it reads.
         ``fold_factor`` is rounded up to a divisor of the word count; a
         folded library keeps ``data``'s full-width rows on the host for the
-        exact rescore. ``device`` defaults to the card and raises without
-        one; ``device="cpu"`` runs the plain versions on the host. On the
-        card a library wider than its kernel takes is refused here
-        (:func:`check_kernel_width`), before any upload."""
+        exact rescore. The library shards over ``mesh``, by default every
+        visible card (raises without one); ``device`` is shorthand for a
+        one-shard mesh, and ``device="cpu"`` runs the plain versions on the
+        host. On the card a library wider than its kernel takes is refused
+        here (:func:`check_kernel_width`), before any upload."""
         data.validate()
         if scan_mode not in ("dense", "bitplane"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
@@ -123,47 +128,84 @@ class FingerprintDB:
                 "popless stores are dense-only: the bitplane score needs "
                 "stored popcounts"
             )
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, device)
+        self.device = self.mesh.devices[0]
         self.scan_mode = scan_mode
-        self.popless = popless
+        # the per-process feed builds popcounts with its slabs: popless is a
+        # one-card memory squeeze, not a multi-process need
+        self.popless = popless and self.mesh.n_processes == 1
         self.dbkey = data.dbkey
         self.bitcount = data.bitcount
         self.generator = data.generator
         self._smiles = data.smiles
         self._ids = data.ids
+        # captured up front: host-sharded string tables hold only this
+        # process's span
         self._count = data.count
         self._full_words = data.packed_words()
         self.word_count = self._full_words.shape[1]
         self.fold_factor = fold_ops.round_fold_factor(
             self.word_count, int(fold_factor)
         )
-        check_kernel_width(self.device.type, scan_mode, self.device_bitcount)
-        self._store: sharded.BitplaneStore | sharded.DenseStore | None = None
+        for device_type in {d.type for d in self.mesh.devices}:
+            check_kernel_width(device_type, scan_mode, self.device_bitcount)
+        # full-width fingerprint bytes this process read to build its shards
+        self.loaded_fp_bytes: int | None = None
+        self._store: sharded.ShardedStore | None = None
         self.upload()
 
     def upload(self) -> None:
-        """Build the device store: a virtual library is generated on the
-        device, anything else is folded and transposed from its rows; either
-        way slab by slab, so the library is never held twice."""
+        """Build this process's shards: each shard's span of the rows is
+        folded and transposed onto its device slab by slab, or generated
+        there for a virtual library, so the library is never held twice and
+        the process reads no row outside its shards. In a multi-process job
+        the string tables held in RAM are then cut to the process's span."""
         if self._store is not None:
             return
-        full, fold, dev = self._full_words, self.fold_factor, self.device
-        virtual = isinstance(full, synth.VirtualWords)
-        if self.scan_mode == "dense" and virtual:
-            self._store = synth.build_virtual_dense_store(
-                self._count, fold, self.word_count, full.seed,
-                popless=self.popless, device=dev,
-            )
-        elif self.scan_mode == "dense":
-            self._store = sharded.build_store(
-                full, dev, fold_factor=fold, popless=self.popless
-            )
-        elif virtual:
-            self._store = synth.build_virtual_bitplane_store(
-                self._count, fold, self.word_count, full.seed, device=dev
-            )
-        else:
-            self._store = sharded.build_bitplane_store(full, dev, fold_factor=fold)
+        self._store = sharded.build_sharded_store(
+            self._full_words, self.mesh, self.scan_mode, self.fold_factor,
+            self.popless,
+        )
+        self.loaded_fp_bytes = self._store.local_rows * self.word_count * 4
+        if self.mesh.n_processes > 1:
+            self._shard_host_strings()
+
+    def _shard_host_strings(self) -> None:
+        """The multi-process string policy. Memory-mapped tables
+        (``.tfsim``) stay whole on every process: the page cache holds them
+        and a lookup touches one page. Tables held in RAM (``.fsim`` loads,
+        plain lists) are cut to this process's span
+        (:class:`~..parallel.multihost.HostStrings`); results then resolve
+        other processes' rows with one collective per batch."""
+        lo, hi = multihost.process_row_span(self.mesh, self._store.n_padded)
+        for attr in ("_smiles", "_ids"):
+            table = getattr(self, attr)
+            if multihost.needs_host_sharding(table):
+                local = [bytes(s) for s in table[lo:min(hi, self._count)]]
+                setattr(self, attr, multihost.HostStrings(local, lo, hi))
+
+    def _lookup_strings_batch(self, idx_lists):
+        """The smiles and ids of many result index arrays at once:
+        ``(smiles_lists, ids_lists)``. Host-sharded tables resolve in one
+        :func:`~..parallel.multihost.resolve_strings_many` call for the
+        whole batch, the rest directly."""
+        out = [[None] * len(idx_lists), [None] * len(idx_lists)]
+        plans, pairs = [], []
+        for fi, table in enumerate((self._smiles, self._ids)):
+            if isinstance(table, multihost.HostStrings):
+                for li, idx in enumerate(idx_lists):
+                    plans.append((fi, li))
+                    pairs.append((table, idx))
+            else:
+                for li, idx in enumerate(idx_lists):
+                    out[fi][li] = [table[int(i)] for i in idx]
+        if pairs:
+            for (fi, li), raw in zip(plans, multihost.resolve_strings_many(pairs)):
+                out[fi][li] = raw
+        return tuple(
+            [[s.decode("utf-8", "replace") for s in raw] for raw in field]
+            for field in out
+        )
 
     # ------------------------------------------------------------------ info
 
@@ -176,7 +218,7 @@ class FingerprintDB:
         return self.bitcount // self.fold_factor
 
     @property
-    def store(self) -> sharded.BitplaneStore | sharded.DenseStore:
+    def store(self) -> sharded.ShardedStore:
         return self._store
 
     def get_smiles(self, index: int) -> str:
@@ -238,31 +280,32 @@ class FingerprintDB:
             self.count,
         )
         folded = np.ascontiguousarray(fold_ops.fold_words(queries, self.fold_factor))
-        dev = self.device
-        query_pops = torch.from_numpy(popcount_rows_np(folded)).to(dev)
-        cut_t = torch.from_numpy(np.array(cutoffs)).to(dev)
         if self.scan_mode == "dense":
-            vals, idx, approx = sharded.dense_local_topk(
-                self._store, torch.from_numpy(folded.view(np.int32)).to(dev),
-                query_pops, cut_t, k_fetch, similarity, alpha, beta,
-            )
+            query_arg = folded.view(np.int32)
         else:
-            plane_idx, _bucket = query_plane_indices(folded, self.device_bitcount)
-            vals, idx, approx = sharded.bitplane_local_topk(
-                self._store, torch.from_numpy(plane_idx).to(dev), query_pops,
-                cut_t, k_fetch, similarity, alpha, beta,
-            )
-        vals, idx, approx = vals.cpu().numpy(), idx.cpu().numpy(), approx.cpu().numpy()
+            query_arg, _bucket = query_plane_indices(folded, self.device_bitcount)
+        vals, idx, counts = sharded.sharded_local_topk(
+            self._store, query_arg, popcount_rows_np(folded),
+            np.array(cutoffs), k_fetch, similarity, alpha, beta,
+        )
+        vals, idx = vals.numpy(), idx.numpy()
+        # per-shard counts (S, B), summed in int64
+        approx = counts.to(torch.int64).sum(dim=0).numpy()
 
-        results = []
-        for qi in range(b):
-            svals, sidx = self._assemble(
+        selected = [
+            self._assemble(
                 queries[qi], vals[qi], idx[qi], int(ks[qi]), float(cutoffs[qi]),
                 similarity, alpha, beta,
             )
+            for qi in range(b)
+        ]
+        # the whole batch's strings at once: one collective when host-sharded
+        smiles_b, ids_b = self._lookup_strings_batch([i for _, i in selected])
+        results = []
+        for qi, (svals, sidx) in enumerate(selected):
             result = SearchResult(
-                smiles=[self.get_smiles(int(i)) for i in sidx],
-                ids=[self.get_id(int(i)) for i in sidx],
+                smiles=smiles_b[qi],
+                ids=ids_b[qi],
                 scores=[float(v) for v in svals],
                 approximate_count=int(approx[qi]),
             )

@@ -147,12 +147,16 @@ def bitplane_phase1_kernel(planes, pops, plane_idx, query_pops, cutoffs,
                         dtype=torch.int16, device=planes.device)
     lens = torch.empty(b, dtype=torch.int32, device=planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    rc = fn(
-        planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
-        query_pops.data_ptr(), cutoffs.data_ptr(), alpha_beta.data_ptr(),
-        colmax.data_ptr(), counts.data_ptr(), lists.data_ptr(), lens.data_ptr(),
-        m, b, p, planes.shape[0], int(n_valid), tversky, stream,
-    )
+    # the C launcher works on the thread's current device: make it the
+    # tensors' (a shard on another card, a worker thread)
+    with torch.cuda.device(planes.device):
+        rc = fn(
+            planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
+            query_pops.data_ptr(), cutoffs.data_ptr(), alpha_beta.data_ptr(),
+            colmax.data_ptr(), counts.data_ptr(), lists.data_ptr(),
+            lens.data_ptr(), m, b, p, planes.shape[0], int(n_valid), tversky,
+            stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"bitplane phase-1 kernel launch failed: {err(rc).decode()}"

@@ -147,13 +147,16 @@ def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
     block_max = torch.empty((b, n // block), dtype=torch.float32, device=words.device)
     counts = torch.zeros(b, dtype=torch.int64, device=words.device)
     stream = torch.cuda.current_stream(words.device).cuda_stream
-    rc = fn(
-        words.data_ptr(), 0 if pops is None else pops.data_ptr(),
-        queries.data_ptr(), query_pops.data_ptr(), cutoffs.data_ptr(),
-        alpha_beta.data_ptr(), block_max.data_ptr(), counts.data_ptr(),
-        n, words.stride(0), wf, b, block, int(n_valid),
-        int(similarity == TVERSKY), stream,
-    )
+    # the C launcher works on the thread's current device: make it the
+    # tensors' (a shard on another card, a worker thread)
+    with torch.cuda.device(words.device):
+        rc = fn(
+            words.data_ptr(), 0 if pops is None else pops.data_ptr(),
+            queries.data_ptr(), query_pops.data_ptr(), cutoffs.data_ptr(),
+            alpha_beta.data_ptr(), block_max.data_ptr(), counts.data_ptr(),
+            n, words.stride(0), wf, b, block, int(n_valid),
+            int(similarity == TVERSKY), stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"dense phase-1 kernel launch failed: {err(rc).decode()}"

@@ -169,14 +169,17 @@ def mxu_phase1_kernel(words, pops, qbits, query_pops, cutoffs, alpha_beta,
     stream = torch.cuda.current_stream(words.device).cuda_stream
     for q0 in range(0, b, MAX_QUERIES):
         q1 = min(b, q0 + MAX_QUERIES)
-        rc = fn(
-            words.data_ptr(), pops.data_ptr(), qbits[q0:q1].data_ptr(),
-            query_pops[q0:q1].data_ptr(), cutoffs[q0:q1].data_ptr(),
-            alpha_beta.data_ptr(), block_max[q0:q1].data_ptr(),
-            counts[q0:q1].data_ptr(), scratch.data_ptr(), n, words.stride(0),
-            q1 - q0, block, int(n_valid), int(shard_offset),
-            int(similarity == TVERSKY), stream,
-        )
+        # the C launcher works on the thread's current device: make it the
+        # tensors' (a store on another card, a worker thread)
+        with torch.cuda.device(words.device):
+            rc = fn(
+                words.data_ptr(), pops.data_ptr(), qbits[q0:q1].data_ptr(),
+                query_pops[q0:q1].data_ptr(), cutoffs[q0:q1].data_ptr(),
+                alpha_beta.data_ptr(), block_max[q0:q1].data_ptr(),
+                counts[q0:q1].data_ptr(), scratch.data_ptr(), n,
+                words.stride(0), q1 - q0, block, int(n_valid),
+                int(shard_offset), int(similarity == TVERSKY), stream,
+            )
         if rc != 0:
             raise RuntimeError(
                 f"mxu phase-1 kernel launch failed: {err(rc).decode()}"

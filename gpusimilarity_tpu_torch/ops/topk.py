@@ -39,3 +39,22 @@ def topk_lowest_index(
     )
     _, pos = torch.topk(key, k, dim=-1)
     return torch.gather(scores, -1, pos), pos
+
+
+def merge_topk(
+    vals: torch.Tensor, idx: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-shard candidate lists into one top-k (twin of the JAX
+    ``merge_topk``): ``vals``/``idx`` ``(..., S, k_s)`` with global indices
+    become ``(..., k)``.
+
+    Each shard's list is in (score descending, index ascending) order and
+    the shards own contiguous row spans in ascending order, so among equal
+    scores the lower flattened position is the lower global index: the
+    merge takes the lowest position first, as ``jax.lax.top_k`` does, and
+    dense ties still go to the lowest global index.
+    """
+    flat_vals = vals.reshape(*vals.shape[:-2], -1)
+    flat_idx = idx.reshape(*idx.shape[:-2], -1)
+    top, pos = topk_lowest_index(flat_vals, k)
+    return top, torch.gather(flat_idx, -1, pos)

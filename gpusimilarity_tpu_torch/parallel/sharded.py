@@ -1,7 +1,12 @@
-"""The device stores and their exact top-k searches on one device (twin of
-``gpusimilarity_tpu/parallel/sharded.py``).
+"""The device stores, their exact top-k searches and the sharded library
+(twin of ``gpusimilarity_tpu/parallel/sharded.py``).
 
-The library is one shard on one GPU. Two stores:
+A library is cut into contiguous row spans, one per shard of a
+:class:`~.mesh.Mesh` (:func:`plan_shard_spans`), and each shard is an
+ordinary single-device store (:class:`ShardedStore`). A search runs each
+shard's store search (its kernel), offsets the shard's candidates to global
+rows and merges them (:func:`sharded_local_topk`); the per-shard counts are
+summed in int64. Two stores:
 
 * :class:`BitplaneStore`: planes stored plain plane-major,
   ``int32 [(bitcount + 1), n_padded / 32]`` in global column order, with
@@ -33,6 +38,7 @@ Left out on purpose:
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,8 +59,8 @@ from ..ops.scan import (
     score_columns,
     similarity_from_counts,
 )
-from ..ops.topk import topk_lowest_index
-from .mesh import resolve_device
+from ..ops.topk import merge_topk, topk_lowest_index
+from .mesh import Mesh, resolve_device
 
 # two-phase top-k granularity: candidate blocks of 2048 columns
 SELECT_BLOCK_COLS = 32 * BLOCK_WORDS
@@ -130,7 +136,7 @@ def build_bitplane_store(
     """Build a store from packed rows ``(N, W)``: numpy ``uint32`` (an
     array, a memory map or a lazy :class:`~..utils.synth.VirtualWords`)
     uploaded to ``device`` (the card unless told otherwise), or an int32
-    tensor already on its device.
+    tensor on a device (the store's, unless ``device`` names another).
 
     Rows stream in slabs of 2Mi: the planes are allocated once, then each
     slab is read, OR-folded (:func:`~..ops.fold.fold_words`, on the host for
@@ -140,11 +146,10 @@ def build_bitplane_store(
     n, w = packed_rows.shape
     if w % fold_factor:
         raise ValueError(f"fold factor {fold_factor} does not divide {w} words")
-    on_device = isinstance(packed_rows, torch.Tensor)
-    if on_device:
+    if isinstance(packed_rows, torch.Tensor):
         if packed_rows.dtype != torch.int32 or packed_rows.dim() != 2:
             raise ValueError("packed rows must be int32 (N, W)")
-        device = packed_rows.device
+        device = packed_rows.device if device is None else torch.device(device)
     else:
         device = resolve_device(device)
     store = empty_bitplane_store(n, 32 * (w // fold_factor), device)
@@ -158,10 +163,10 @@ def build_bitplane_store(
 
 def _folded_slab(packed_rows, s: int, e: int, fold_factor: int, device) -> torch.Tensor:
     """Rows ``[s, e)`` of a store build's source, OR-folded, as int32 on
-    ``device``: folded there when the source is a tensor, on the host before
-    the upload when it is numpy."""
+    ``device``: folded on the source's device when it is a tensor, on the
+    host before the upload when it is numpy."""
     if isinstance(packed_rows, torch.Tensor):
-        return fold_ops.fold_words(packed_rows[s:e], fold_factor)
+        return fold_ops.fold_words(packed_rows[s:e], fold_factor).to(device)
     rows = np.asarray(packed_rows[s:e], dtype=np.uint32)
     folded = np.ascontiguousarray(fold_ops.fold_words(rows, fold_factor))
     if not folded.flags.writeable:  # a slab of a read-only memory map
@@ -294,7 +299,8 @@ def build_store(
     """Build a planar dense store from packed rows ``(N, W)``: numpy
     ``uint32`` — an array, a memory map or a lazy
     :class:`~..utils.synth.VirtualWords` — uploaded to ``device`` (the card
-    unless told otherwise), or an int32 tensor already on its device.
+    unless told otherwise), or an int32 tensor on a device (the store's,
+    unless ``device`` names another).
 
     Rows stream in slabs of 2Mi: each slab is read once, OR-folded
     (:func:`~..ops.fold.fold_words`, on the host for numpy rows), uploaded
@@ -306,11 +312,10 @@ def build_store(
     n, w = packed_rows.shape
     if w % fold_factor:
         raise ValueError(f"fold factor {fold_factor} does not divide {w} words")
-    on_device = isinstance(packed_rows, torch.Tensor)
-    if on_device:
+    if isinstance(packed_rows, torch.Tensor):
         if packed_rows.dtype != torch.int32 or packed_rows.dim() != 2:
             raise ValueError("packed rows must be int32 (N, W)")
-        device = packed_rows.device
+        device = packed_rows.device if device is None else torch.device(device)
     else:
         device = resolve_device(device)
     words = torch.zeros(
@@ -430,3 +435,185 @@ def dense_full_scan_topk(
             min(k, best_v.shape[1] + c1 - c0),
         )
     return (*_topk_padded(best_v, best_i, k), counts)
+
+
+# ------------------------------------------------------------------ shards
+
+
+@dataclass(frozen=True)
+class ShardedStore:
+    """A library cut into contiguous row spans over a mesh's shards: this
+    process's shard stores in mesh order, each shard's first global row,
+    and the global layout (every process derives the same one)."""
+
+    shards: tuple  # this process's BitplaneStore or DenseStore per shard
+    row0s: tuple[int, ...]  # first global row of each local shard
+    n_valid: int  # global row count
+    n_shards: int  # shards over every process
+    per_shard: int  # rows of every shard's span in the padded layout
+    mesh: Mesh
+
+    @property
+    def n_padded(self) -> int:
+        return self.per_shard * self.n_shards
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of this process's shards."""
+        return sum(s.nbytes for s in self.shards)
+
+    @property
+    def local_rows(self) -> int:
+        """Library rows in this process's shards: the only rows it read."""
+        return sum(s.n_valid for s in self.shards)
+
+
+def shard_rows(n: int, n_shards: int, align: int) -> int:
+    """Rows of every shard's span in the padded layout of ``n`` rows:
+    ``ceil(n / n_shards)`` rounded up to ``align`` (at least ``align``)."""
+    per = -(-max(n, 1) // n_shards)
+    return -(-per // align) * align
+
+
+def plan_shard_spans(n: int, n_shards: int, align: int) -> list[tuple[int, int]]:
+    """Each shard's global row span ``[lo, hi)`` for ``n`` rows, in shard
+    order: spans of :func:`shard_rows`, the last real one cut at ``n`` (the
+    JAX ``plan_store_layout``). Every process derives the same spans without
+    communicating. A shard past ``n`` holds only padding: ``lo == hi``, and
+    its search returns -inf / -1 and a count of 0."""
+    per = shard_rows(n, n_shards, align)
+    return [(s * per, max(s * per, min(n, (s + 1) * per))) for s in range(n_shards)]
+
+
+def shard_align(scan_mode: str) -> int:
+    """Rows a shard's span is a multiple of: the store's selection block, so
+    every shard but the last holds whole blocks and no padding."""
+    return SELECT_BLOCK_COLS if scan_mode == "bitplane" else DENSE_BLOCK_COLS
+
+
+def build_sharded_store(
+    packed_rows,
+    mesh: Mesh,
+    scan_mode: str = "bitplane",
+    fold_factor: int = 1,
+    popless: bool = False,
+) -> ShardedStore:
+    """Build this process's shards of a library from its packed rows
+    ``(N, W)`` (numpy, a memory map, a tensor or a lazy
+    :class:`~..utils.synth.VirtualWords`): each local shard's span streams
+    through the slab builders (:func:`build_bitplane_store`,
+    :func:`build_store`) onto its device, or a virtual library's span is
+    generated there, so no device ever holds more than its shards and the
+    process reads no row outside its shards' spans."""
+    from ..utils import synth
+
+    n, w = packed_rows.shape
+    align = shard_align(scan_mode)
+    spans = plan_shard_spans(n, mesh.n_shards, align)
+    local = spans[mesh.first_shard:mesh.first_shard + len(mesh.devices)]
+    virtual = isinstance(packed_rows, synth.VirtualWords)
+    shards = []
+    for dev, (lo, hi) in zip(mesh.devices, local):
+        if virtual and scan_mode == "bitplane":
+            shard = synth.build_virtual_bitplane_store(
+                hi - lo, fold_factor, w, packed_rows.seed, device=dev, row0=lo)
+        elif virtual:
+            shard = synth.build_virtual_dense_store(
+                hi - lo, fold_factor, w, packed_rows.seed, popless=popless,
+                device=dev, row0=lo)
+        elif scan_mode == "bitplane":
+            shard = build_bitplane_store(packed_rows[lo:hi], dev, fold_factor)
+        else:
+            shard = build_store(packed_rows[lo:hi], dev, fold_factor, popless)
+        shards.append(shard)
+    return ShardedStore(
+        shards=tuple(shards), row0s=tuple(lo for lo, _ in local), n_valid=n,
+        n_shards=mesh.n_shards, per_shard=shard_rows(n, mesh.n_shards, align),
+        mesh=mesh,
+    )
+
+
+def _global_rows(vals, idx, row0: int):
+    """A shard's candidate indices as global rows: ``idx + row0``, and -1
+    where the score is -inf (padding, or fewer matches than k). The local
+    searches already pad to k (the JAX ``_pad_to_k``)."""
+    return torch.where(vals > NEG_INF, idx + row0, -1)
+
+
+def sharded_local_topk(
+    store: ShardedStore,
+    queries: np.ndarray,  # int32 (B, Wf) folded words, or (B, P) plane lists
+    query_pops: np.ndarray,  # int32 (B,)
+    cutoffs: np.ndarray,  # f32 (B,)
+    k: int,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact top-k over every shard: ``(values f32 (B, k), indices int64
+    (B, k), counts int64 (S, B))``, host tensors, the same on every process.
+
+    Each shard runs its store's search (:func:`bitplane_local_topk` or
+    :func:`dense_local_topk`: its kernel on the card) for ``queries`` (the
+    folded words of a dense store, the plane lists of a bitplane store); the
+    shards of one device run in turn on one worker thread, the devices'
+    threads at once, so cards overlap. Each shard's candidates are offset to
+    global rows, gathered from every process
+    (:func:`~.multihost.gather_shard_candidates`) and merged
+    (:func:`~..ops.topk.merge_topk`). The counts travel un-summed, one row
+    per shard: the caller sums them in int64 (an int32 sum overflows past
+    2.1B rows).
+    """
+    from . import multihost
+
+    mesh = store.mesh
+    b = queries.shape[0]
+    by_device: dict[torch.device, list[int]] = {}
+    for j, dev in enumerate(mesh.devices):
+        by_device.setdefault(dev, []).append(j)
+
+    def search(dev):
+        # the kernel wrappers make each launch's device current themselves
+        q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+        qp = torch.from_numpy(np.ascontiguousarray(query_pops)).to(dev)
+        ct = torch.from_numpy(np.ascontiguousarray(cutoffs)).to(dev)
+        parts = []
+        for j in by_device[dev]:
+            shard = store.shards[j]
+            local = (bitplane_local_topk if isinstance(shard, BitplaneStore)
+                     else dense_local_topk)
+            v, i, c = local(shard, q, qp, ct, k, similarity, alpha, beta)
+            parts.append((v, _global_rows(v, i, store.row0s[j]), c))
+        # one copy to the host per device, after every shard is queued: the
+        # host launches a shard's ops while the card runs the last's
+        v, i, c = (torch.stack([p[f] for p in parts]).cpu() for f in range(3))
+        return {j: (v[n], i[n], c[n]) for n, j in enumerate(by_device[dev])}
+
+    def run_all():
+        if len(by_device) == 1:
+            return search(mesh.devices[0])
+        done: dict[int, tuple] = {}
+        with ThreadPoolExecutor(len(by_device)) as pool:
+            for part in pool.map(search, by_device):
+                done.update(part)
+        return done
+
+    try:
+        done, failure = run_all(), None
+    except Exception as exc:  # re-raised below, after the collective
+        if mesh.n_processes == 1:
+            raise
+        # a process whose shard search fails still joins the gather, with
+        # counts of -1, so every process raises instead of waiting
+        failure = exc
+        done = {j: (torch.full((b, k), NEG_INF), torch.full((b, k), -1),
+                    torch.full((b,), -1)) for j in range(len(mesh.devices))}
+    parts = [done[j] for j in range(len(mesh.devices))]
+    vals, idx, counts = (torch.stack([p[f] for p in parts]) for f in range(3))
+    vals, idx, counts = multihost.gather_shard_candidates(vals, idx, counts, mesh)
+    if failure is not None:
+        raise failure
+    if bool((counts < 0).any()):
+        raise RuntimeError("a shard search failed on another process")
+    vals, idx = merge_topk(vals.transpose(0, 1), idx.transpose(0, 1), k)
+    return vals, idx, counts

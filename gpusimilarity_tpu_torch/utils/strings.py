@@ -19,6 +19,22 @@ from . import native
 from .qtstream import QtStreamReader
 
 
+def mmap_backing(arr):
+    """The ``np.memmap`` ultimately backing ``arr``, or None.
+
+    Views (``ascontiguousarray``, ``reshape``, dtype views) downcast the
+    ``np.memmap`` subclass to plain ``ndarray`` while still paging lazily
+    from the file — an ``isinstance`` check on the array itself misses
+    them; walk the base chain instead.
+    """
+    a = arr
+    while a is not None:
+        if isinstance(a, np.memmap):
+            return a
+        a = getattr(a, "base", None)
+    return None
+
+
 def _parse_offsets_py(buf: np.ndarray) -> np.ndarray:
     """Pure-python fallback for native.parse_string_records."""
     reader = QtStreamReader(buf.tobytes())

@@ -28,6 +28,7 @@ from ..ops.bitplane import shr, wrap_int32
 from ..ops.scan import popcount_rows, popcount_rows_np
 from ..parallel.mesh import resolve_device
 from ..parallel.sharded import (
+    SELECT_BLOCK_COLS,
     BitplaneStore,
     DenseStore,
     empty_bitplane_store,
@@ -284,10 +285,13 @@ def build_virtual_dense_store(
     seed: int = 0,
     popless: bool = True,
     device: torch.device | str | None = None,
+    row0: int = 0,
 ) -> DenseStore:
-    """Generate the folded virtual library directly on the device as a
-    dense store (twin of ``build_virtual_dense_store``): each step makes
-    1Mi full-width rows, OR-folds them and writes their columns (and
+    """Generate rows ``[row0, row0 + n_rows)`` of the folded virtual library
+    directly on the device as a dense store (twin of
+    ``build_virtual_dense_store``; a shard passes its span, so a sharded
+    virtual library holds the same bits as an unsharded one): each step
+    makes 1Mi full-width rows, OR-folds them and writes their columns (and
     popcounts, unless ``popless``) in place. Peak transient memory is a few
     hundred MB at any library size. Padding columns stay zero; the scan's
     ``n_valid`` mask excludes them.
@@ -302,7 +306,7 @@ def build_virtual_dense_store(
     for lo in range(0, n_rows, _GEN_ROWS):
         hi = min(n_rows, lo + _GEN_ROWS)
         folded = fold_ops.fold_words(
-            virtual_rows(lo, hi - lo, word_count, seed, device), fold_factor
+            virtual_rows(row0 + lo, hi - lo, word_count, seed, device), fold_factor
         )
         words[:, lo:hi] = folded.T
         if pops is not None:
@@ -316,12 +320,14 @@ def build_virtual_bitplane_store(
     word_count: int = 32,
     seed: int = 0,
     device: torch.device | str | None = None,
+    row0: int = 0,
 ) -> BitplaneStore:
-    """Generate the folded virtual library directly on the device as a
-    bitplane store (twin of ``build_virtual_bitplane_store``): the planes
-    are allocated once, then each step makes 1Mi full-width rows, OR-folds
-    them, transposes them into their plane words and drops them, so the
-    rows never exist whole beside the planes."""
+    """Generate rows ``[row0, row0 + n_rows)`` of the folded virtual library
+    directly on the device as a bitplane store (twin of
+    ``build_virtual_bitplane_store``): the planes are allocated once, then
+    each step makes 1Mi full-width rows, OR-folds them, transposes them into
+    their plane words and drops them, so the rows never exist whole beside
+    the planes."""
     if word_count % fold_factor:
         raise ValueError("fold factor must divide the word count")
     device = resolve_device(device)
@@ -329,9 +335,18 @@ def build_virtual_bitplane_store(
     for lo in range(0, n_rows, _GEN_ROWS):
         hi = min(n_rows, lo + _GEN_ROWS)
         fill_bitplane_slab(store, lo, fold_ops.fold_words(
-            virtual_rows(lo, hi - lo, word_count, seed, device), fold_factor
+            virtual_rows(row0 + lo, hi - lo, word_count, seed, device), fold_factor
         ))
     return store
+
+
+def aligned_virtual_rows(n: int, n_shards: int) -> int:
+    """Largest row count <= ``n`` (at least one span) whose shard spans are
+    all full: a multiple of the bitplane selection block per shard (twin of
+    ``aligned_virtual_rows``; the port's stores pad any count, so this only
+    keeps every shard of a test library non-empty and equal)."""
+    align = SELECT_BLOCK_COLS * n_shards
+    return max(align, n // align * align)
 
 
 def pick_query_rows(

@@ -315,9 +315,9 @@ def test_folded_bitplane_upload_streams_and_equals_the_folded_rows(virtual, monk
     monkeypatch.setattr(sharded, "planes_from_rows", transpose)
     folded = np.ascontiguousarray(fold_words(fps.words[:], 4))
     want = sharded.build_bitplane_store(torch.from_numpy(folded.view(np.int32)))
-    assert torch.equal(db.store.planes, want.planes)
-    assert torch.equal(db.store.popcounts, want.popcounts)
-    assert (db.store.n_valid, db.store.bitcount) == (n, 256)
+    assert torch.equal(db.store.shards[0].planes, want.planes)
+    assert torch.equal(db.store.shards[0].popcounts, want.popcounts)
+    assert (db.store.shards[0].n_valid, db.store.shards[0].bitcount) == (n, 256)
 
 
 def test_scale_tool_loads_and_searches_a_virtual_library_on_the_cpu(capsys):

@@ -124,7 +124,7 @@ def test_global_fold_matches_jax(monkeypatch, free, device_bitcount, want):
     monkeypatch.setattr(
         jregistry, "auto_fold_factor", lambda b: jmesh.auto_fold_factor(b)
     )
-    dev = torch.device("cpu")
+    dev = mesh.Mesh(["cpu"])
     if want == "MemoryError":
         with pytest.raises(MemoryError, match="device_bitcount"):
             jregistry.DatabaseRegistry._global_fold(datas, device_bitcount)
@@ -194,8 +194,8 @@ def test_engine_matches_jax_engine(library, name, similarity, alpha, beta):
     assert got[0].scores[0] == 1.0 and got[0].indices[0] == 0
     assert db.scan_mode == port_kw["scan_mode"]
     if db.scan_mode == "dense":
-        assert db.store.word_count == 32 // db.fold_factor
-        assert (db.store.popcounts is None) == port_kw.get("popless", False)
+        assert db.store.shards[0].word_count == 32 // db.fold_factor
+        assert (db.store.shards[0].popcounts is None) == port_kw.get("popless", False)
 
 
 def test_virtual_dense_fold4_matches_jax_engine():
@@ -216,8 +216,8 @@ def test_virtual_dense_fold4_matches_jax_engine():
     for popless in (False, True):
         db = FingerprintDB(fingerprint_data_from_jax(data), device="cpu",
                            fold_factor=4, scan_mode="dense", popless=popless)
-        assert isinstance(db.store, sharded.DenseStore)
-        assert (db.store.popcounts is None) == popless
+        assert isinstance(db.store.shards[0], sharded.DenseStore)
+        assert (db.store.shards[0].popcounts is None) == popless
         jdb = JaxDB(data, fold_factor=4, scan_mode="dense", use_pallas=True,
                     chunk_cols=512, popless=popless)
         got = db.search_batch(q, [20, 5, 128], [0.0, 0.2, 0.1], "v",
@@ -245,7 +245,8 @@ def test_virtual_bitplane_fold4_is_exact():
     )
     db = FingerprintDB(fingerprint_data_from_jax(data), device="cpu",
                        fold_factor=4, scan_mode="bitplane")
-    assert isinstance(db.store, sharded.BitplaneStore) and db.store.bitcount == 256
+    shard = db.store.shards[0]
+    assert isinstance(shard, sharded.BitplaneStore) and shard.bitcount == 256
     full = virtual_rows_np(np.arange(n), seed=3)
     q = full[[17, 19000]]
     folded = fold_ops.fold_words(full, 4)

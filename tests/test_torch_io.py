@@ -259,12 +259,13 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """With a card the default device is ``cuda:0``; ``device="cpu"`` runs
     the plain path on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert mesh.resolve_device(None) == torch.device("cuda", 0)
     assert DatabaseRegistry().device == torch.device("cuda", 0)
     reg = DatabaseRegistry.from_fsim_files([_fsim_path(tmp_path)], device="cpu")
     assert reg.device == torch.device("cpu")
     db = FingerprintDB(_data(PORT, "offsets"), device="cpu")
-    assert db.store.planes.device == torch.device("cpu")
+    assert db.store.shards[0].planes.device == torch.device("cpu")
 
 
 # ------------------------------------------------------------- import guard

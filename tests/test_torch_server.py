@@ -199,7 +199,8 @@ def test_port_imports_without_jax():
         "assert 'gpusimilarity_tpu_torch.tools.probe_mxu' in names, names\n"
         "assert 'gpusimilarity_tpu_torch.serve.server' in names, names\n"
         "for new in ('serve.socket_server', 'fdw', 'utils.depict', 'cli.createdb',\n"
-        "            'cli.convertdb', 'cli.mergedb', 'cli.search'):\n"
+        "            'cli.convertdb', 'cli.mergedb', 'cli.search',\n"
+        "            'parallel.multihost', 'tools.dryrun_multichip'):\n"
         "    assert 'gpusimilarity_tpu_torch.' + new in names, names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'gpusimilarity_tpu'))\n"
