@@ -78,11 +78,26 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     answers by (d)'s rules over HTTP and the socket, each process fed its
     half, both exiting cleanly. It times each sharded search beside one
     shard and each server's B=1 round trip over HTTP and the socket.
+(t) the measurement entry points, each run as a user runs it, a subprocess
+    of ``python -m gpusimilarity_tpu_torch.tools.<name>`` whose JSON line is
+    checked: (t1) the bench at its defaults, fold 4 on 1,020,017,472 virtual
+    rows (never cut); (t2) the bench unfolded on 113,335,291 rows, bitplane
+    then dense; both with every oracle error field 0 and full self-matches,
+    at fold 1 every full-oracle query's whole top-k exact; (t3)
+    ``fold_accuracy`` at 50,000 rows on the card and on the host, equal but
+    ``wall_s``, then at its default 1,000,000 rows; (t4) ``fold_scale``'s
+    synthetic library of 16,777,216 rows at fold 4, dense and bitplane,
+    every query exact; (t5) ``loadtest`` in full and ``loadtest104`` on
+    (t4)'s library (cut from 104,000,000 rows), every request answered and
+    exact; (t6) ``flagship_server_bench`` on a synthetic ``.tfsim`` of
+    113,335,291 rows (cut from 1,020,017,472: its ids are stored) at fold
+    4, every answer exact.
 
 The main path of each kernel is driven with its launch counter reset just
-before and read just after: the bitplane kernel in (c), (d), (g), (h) and
-(s), the dense kernel in (e), (f) and (s) (the servers' counts come from
-``/stats``; the two-process server's from process 0's),
+before and read just after: the bitplane kernel in (c), (d), (g), (h), (s)
+and (t), the dense kernel in (e), (f), (s) and (t) (the servers' counts come
+from ``/stats``; the two-process server's from process 0's; (t)'s bench
+reports its own run's counts),
 the matrix-product kernel in the probe of (m), which is the one entry point
 that runs it. (s) reads its counts around each sharded search and server
 it checks. Launches made in (b), (b2), (p), (p2) and (m) before the probe,
@@ -972,36 +987,6 @@ def phase_folded_library(device, n_rows, tmp):
     return db
 
 
-def full_width_topk(n_rows, queries_full, k, seed, device, chunk=1 << 18):
-    """Exact full-width lowest-index top-k of the virtual library: rows made
-    on the card chunk by chunk, intersection counts as a float32 product of
-    0/1 bit matrices (exact: sums <= 1024). The recall oracle."""
-    from gpusimilarity_tpu_torch.ops.scan import popcount_rows, similarity_from_counts
-    from gpusimilarity_tpu_torch.ops.topk import topk_lowest_index
-    from gpusimilarity_tpu_torch.utils.synth import virtual_rows
-
-    shifts = torch.arange(32, dtype=torch.int32, device=device)
-
-    def bits(words):
-        return ((words[:, :, None] >> shifts) & 1).reshape(len(words), -1).float()
-
-    q = torch.from_numpy(queries_full.view(np.int32)).to(device)
-    qbits, qpops = bits(q), popcount_rows(q)
-    b = len(q)
-    best_v = torch.empty((b, 0), device=device)
-    best_i = torch.empty((b, 0), dtype=torch.int64, device=device)
-    for lo in range(0, n_rows, chunk):
-        hi = min(n_rows, lo + chunk)
-        r = virtual_rows(lo, hi - lo, 32, seed, device)
-        common = (bits(r) @ qbits.T).T.to(torch.int32)  # (B, chunk)
-        s = similarity_from_counts(common, popcount_rows(r), qpops)
-        v = torch.cat([best_v, s], dim=1)
-        i = torch.cat([best_i, torch.arange(lo, hi, device=device).expand(b, -1)], dim=1)
-        best_v, pos = topk_lowest_index(v, min(k, v.shape[1]), tiebreak=i)
-        best_i = torch.gather(i, 1, pos)
-    return best_v, best_i
-
-
 def phase_folded_engine(db, device, reps=(5, 3)):
     """(e) Engine searches on the folded dense library, each result held to
     the full-width rescore, the plain folded full scan and its order."""
@@ -1013,7 +998,11 @@ def phase_folded_engine(db, device, reps=(5, 3)):
         dense_full_scan_topk,
         dense_local_topk,
     )
-    from gpusimilarity_tpu_torch.utils.synth import pick_query_rows, virtual_rows_np
+    from gpusimilarity_tpu_torch.utils.synth import (
+        pick_query_rows,
+        virtual_full_topk,
+        virtual_rows_np,
+    )
 
     n, store, fold = db.count, db.store.shards[0], db.fold_factor
     rows = pick_query_rows(32, n, fold, seed=SEED)
@@ -1070,8 +1059,8 @@ def phase_folded_engine(db, device, reps=(5, 3)):
     log("[e] popless search B=32 k=128: identical to the search with popcounts")
 
     t0 = time.monotonic()
-    tv, ti = full_width_topk(n, qfull, 20, SEED, device)
-    sync(device)
+    _tv, ti, _tc = virtual_full_topk(n, qfull, 20, SEED, row_chunk=1 << 18,
+                                     device=device)
     got = db.search_batch(qfull, 20, 0.0, db.dbkey, return_indices=True)
     hits = [len(set(r.indices) & set(ti[qi].tolist())) / 20 for qi, r in enumerate(got)]
     log(f"[e] recall@20 against the full-width top 20 (B=32, cutoff 0): mean "
@@ -1919,6 +1908,171 @@ def phase_entrypoints(device, tmp, smoke_path, built, server_args=()):
     return out
 
 
+TOOLS = "gpusimilarity_tpu_torch.tools"
+SCALE_ROWS = 16_777_216  # (t4)-(t6): the fold_scale library's rows (cut)
+LOAD104_ROWS = 104_000_000  # (t5): loadtest104's rows, cut to SCALE_ROWS
+ACCURACY_CHECK = ("--rows", 50_000, "--queries", 10)  # (t3): card vs host
+# (t6): rows of the synthetic .tfsim served, cut from FOLDED_ROWS: its ids are
+# stored, 13 bytes a row, and writing 1,020,017,472 of them took 150 s on the
+# H100 machine's host (PERF.md section 6)
+FLAGSHIP_ROWS = LIB_ROWS
+
+
+def _tool(tag, name, *args, env=None, timeout=900, one_line=False, result=True):
+    """Run ``python -m gpusimilarity_tpu_torch.tools.<name> args`` from the
+    repository root (a subprocess, as a user runs it); it must exit 0. Its
+    last stdout line is its JSON result (unless ``result`` is false): logged
+    beside the card, returned parsed."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{TOOLS}.{name}", *map(str, args)], cwd=ROOT,
+        env={**_port_env(), **(env or {})}, capture_output=True, text=True,
+        timeout=timeout,
+    )
+    check(proc.returncode == 0,
+          f"[{tag}] {name} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    if not result:
+        log(f"[{tag}] {name} {' '.join(map(str, args))} in "
+            f"{time.monotonic() - t0:.1f}s ({gpu_line()})")
+        return None
+    lines = proc.stdout.strip().splitlines()
+    check(bool(lines) and (len(lines) == 1 or not one_line),
+          f"[{tag}] {name} printed {len(lines)} stdout lines, not one")
+    log(f"[{tag}] {name} {' '.join(map(str, args))} "
+        f"{' '.join(f'{k}={v}' for k, v in (env or {}).items())} in "
+        f"{time.monotonic() - t0:.1f}s ({gpu_line()}): {lines[-1]}")
+    return json.loads(lines[-1])
+
+
+def _add_launches(total, payload):
+    for name, n in payload["kernel_launches"].items():
+        total[name] += n
+
+
+def phase_bench(launches):
+    """(t1), (t2) the port's bench as a subprocess: fold 4 on 1,020,017,472
+    virtual rows at its defaults (never cut), then unfolded on 113,335,291
+    rows, bitplane and dense; every oracle error field 0, self-matches
+    full, and at fold 1 every full-oracle query's whole top-k exact."""
+    from gpusimilarity_tpu_torch.tools import bench
+    from gpusimilarity_tpu_torch.utils.synth import aligned_virtual_rows
+
+    out = {}
+    for tag, env, default, ladder in (
+        ("t1", {}, bench.FOLDED_ROWS, bench.FOLDED_LADDER),
+        ("t2", {"TPUSIM_BENCH_FOLD": "1"}, bench.UNFOLDED_ROWS, bench.UNFOLDED_LADDER),
+        ("t2", {"TPUSIM_BENCH_FOLD": "1", "TPUSIM_BENCH_MODE": "dense"},
+         bench.UNFOLDED_ROWS, bench.UNFOLDED_LADDER),
+    ):
+        with phase(tag):
+            p = _tool(tag, "bench", env=env, timeout=900, one_line=True)
+        rungs = [aligned_virtual_rows(r, 1) for r in ladder]
+        check(p["platform"] == "cuda", f"[{tag}] platform {p['platform']}")
+        check(p["rows"] in (default, *rungs), f"[{tag}] rows {p['rows']}")
+        if p["rows"] != default:
+            log(f"[{tag}] ran the ladder rung of {p['rows']:,} rows, not "
+                f"{default:,} ({gpu_line()})")
+        check(p["exact_self_match"] == "1/1" and p["batch32_self_match"] == "32/32",
+              f"[{tag}] self-matches {p['exact_self_match']}, {p['batch32_self_match']}")
+        for field in ("oracle_inclusion_violations", "oracle_score_errors",
+                      "oracle_order_errors", "oracle_count_mismatches"):
+            check(p[field] == 0, f"[{tag}] {field} = {p[field]}")
+        if p["fold"] == 1:
+            n_q = int(p["oracle_full_queries"].split()[0])
+            check(p["oracle_exact_topk_queries"] == n_q
+                  and p["oracle_fold1_seq_mismatches"] == 0,
+                  f"[{tag}] exact top-k for {p['oracle_exact_topk_queries']} of {n_q}")
+        _add_launches(launches, p)
+        out[p["mode"]] = p
+    return out
+
+
+def phase_fold_accuracy():
+    """(t3) the fold-accuracy study: the same line on the card as on the
+    host (but ``wall_s``) at 50,000 rows, then its default run."""
+    on_card = _tool("t3", "fold_accuracy", *ACCURACY_CHECK)
+    on_host = _tool("t3", "fold_accuracy", *ACCURACY_CHECK, "--cpu_only")
+    on_card.pop("wall_s")
+    on_host.pop("wall_s")
+    check(on_card == on_host, f"[t3] card {on_card} != host {on_host}")
+    return _tool("t3", "fold_accuracy")
+
+
+def phase_fold_scale(directory):
+    """(t4) fold_scale's synthetic library (Morgan-like, ``--and_slabs 4``)
+    written under ``directory``, searched at fold 4 dense and bitplane:
+    every query exact (the tool exits 1 otherwise)."""
+    common = ("--rows", SCALE_ROWS, "--and_slabs", 4, "--dir", directory)
+    _tool("t4", "fold_scale", *common, "--generate_only", result=False)
+    out = {}
+    for mode in ("dense", "bitplane"):
+        p = _tool("t4", "fold_scale", *common, "--fold", 4, "--mode", mode)
+        check(p["fold"] == 4 and p["exact_self_match"] == "8/8",
+              f"[t4] {mode}: {p['exact_self_match']} at fold {p['fold']}")
+        out[mode] = p
+    return out
+
+
+def phase_loadtests(directory, launches):
+    """(t5) the load tests: ``loadtest`` in full, ``loadtest104`` on (t4)'s
+    library (rows cut); every request answered and exact."""
+    from gpusimilarity_tpu_torch.tools.loadtest import PASS_REQUESTS, PRESETS
+
+    out = {}
+    for preset, args in (("loadtest", ()),
+                         ("loadtest104", ("--rows", SCALE_ROWS, "--dir", directory))):
+        if args:
+            log(f"[t5] {preset} cut from {LOAD104_ROWS:,} to {SCALE_ROWS:,} rows "
+                f"({gpu_line()})")
+        p = _tool("t5", "loadtest", "--preset", preset, *args, timeout=1200)
+        want = 2 * PASS_REQUESTS + sum(PRESETS[preset]["warmup"])
+        check(p["failures"] == 0 and p["requests"] == want == p["searches"],
+              f"[t5] {preset}: {p['failures']} failures, {p['requests']} requests, "
+              f"{p['searches']} searches")
+        _add_launches(launches, p)
+        out[preset] = p
+    return out
+
+
+def write_flagship_library(path, n_rows):
+    """(t6) a synthetic ``.tfsim`` of ``n_rows`` virtual rows whose ids and
+    smiles are ``SYN%010d`` (``flagship_server_bench`` reads each result's
+    row from its id; distinct smiles, so the server merges no rows): the
+    file ``save_native`` writes, its constant string tables then replaced by
+    ``fold_scale``'s stored ids (13 bytes a row, smiles hardlinked)."""
+    from gpusimilarity_tpu_torch.tools.fold_scale import STRIDED_IDS, write_strided_ids
+    from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
+    from gpusimilarity_tpu_torch.utils.strings import ConstantStringTable
+    from gpusimilarity_tpu_torch.utils.synth import VirtualFingerprints
+    from gpusimilarity_tpu_torch.utils.tfsim import save_native
+
+    save_native(path, FingerprintData(
+        dbkey="flagship", bitcount=1024,
+        fingerprints=VirtualFingerprints(n_rows, 1024, SEED),
+        smiles=ConstantStringTable(b"C", n_rows), ids=ConstantStringTable(b"S", n_rows),
+    ))
+    write_strided_ids(Path(path), n_rows)
+    meta = json.loads((Path(path) / "meta.json").read_text())
+    meta["strings"] = {"ids": STRIDED_IDS, "smiles": STRIDED_IDS}
+    (Path(path) / "meta.json").write_text(json.dumps(meta))
+
+
+def phase_flagship(directory, launches):
+    """(t6) flagship_server_bench on a synthetic ``.tfsim`` of
+    ``FLAGSHIP_ROWS`` rows served at fold 4: every answer exact."""
+    path = Path(directory) / "flagship.tfsim"
+    t0 = time.monotonic()
+    write_flagship_library(path, FLAGSHIP_ROWS)
+    log(f"[t6] synthetic .tfsim cut from {FOLDED_ROWS:,} to {FLAGSHIP_ROWS:,} "
+        f"rows, stored ids written in {time.monotonic() - t0:.1f}s ({gpu_line()})")
+    p = _tool("t6", "flagship_server_bench", "--lib", path, "--fold", 4,
+              timeout=1200)
+    check(p["exactness_checks_passed"] == "12/12" and p["fold"] == 4,
+          f"[t6] {p['exactness_checks_passed']} exact at fold {p['fold']}")
+    _add_launches(launches, p)
+    return p
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2032,13 +2186,43 @@ def main() -> int:
         built = phase_createdb(run_tmp.name)
         entry_points = phase_entrypoints(device, run_tmp.name, smoke_path, built)
     run_tmp.cleanup()
+    torch.cuda.empty_cache()
+
+    # (t): the measurement entry points, each a subprocess that counts its
+    # own launches and reports them (the bench its whole run, the servers
+    # their /stats over the requests)
+    t_launches = {"bitplane_phase1": 0, "dense_phase1": 0}
+    bench_runs = phase_bench(t_launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("t3"):
+            accuracy = phase_fold_accuracy()
+        with phase("t4"):
+            scale = phase_fold_scale(tmp)
+        with phase("t5"):
+            loads = phase_loadtests(tmp, t_launches)
+        with phase("t6"):
+            flagship = phase_flagship(tmp, t_launches)
+    check(all(t_launches.values()), f"(t) launched no kernel: {t_launches}")
 
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}, entry points "
         f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}; "
         f"dense engine {dense_engine_launches}, server {folded_server_launches}, "
         f"sharded {s_launches['dense_phase1']}; matrix-product probe "
-        f"{probe_launches}")
+        f"{probe_launches}; measurement entry points (t) bitplane "
+        f"{t_launches['bitplane_phase1']}, dense {t_launches['dense_phase1']}")
+    log(f"measurement entry points ({gpu_line()}): bench "
+        + "; ".join(f"{mode} {p['rows']:,} rows {p['value']:.4g} fp/s "
+                    f"(vs_baseline {p['vs_baseline']}), p50 B=1 "
+                    f"{p['p50_latency_ms']} ms, B=32 {p['batch32_p50_ms']} ms, "
+                    f"host rescore {p['host_rescore']}"
+                    for mode, p in bench_runs.items())
+        + f"; fold accuracy {accuracy['rows']:,} rows: "
+        + ", ".join(f"fold {f} {accuracy[f'fold{f}_mismatch_pct']}%" for f in (2, 4, 8))
+        + "; fold_scale " + ", ".join(f"{m} p50 {p['value']} ms" for m, p in scale.items())
+        + "; " + "; ".join(f"{name} warm {p['warm_qps']} qps, p99 {p['warm_p99_ms']} ms"
+                           for name, p in loads.items())
+        + f"; flagship p50 {flagship['value']} ms, p99 {flagship['p99_ms']} ms")
     log(f"sharded ({gpu_line()}): bitplane {LIB_ROWS:,} rows, 1 -> "
         f"{S_BITPLANE_SHARDS} shards on one card: "
         + ", ".join(f"B={b} {a:.3f} -> {c:.3f} ms" for b, (a, c) in s_bitplane.items())
@@ -2083,12 +2267,13 @@ def main() -> int:
         "dense_ms_same_store": mxu["dense_ms"],
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
-               + entry_points["launches"] + s_launches["bitplane_phase1"],
-               max_err, timing)
+               + entry_points["launches"] + s_launches["bitplane_phase1"]
+               + t_launches["bitplane_phase1"], max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
     k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches
-               + s_launches["dense_phase1"], max(max_err2, fold_err), timing2)
+               + s_launches["dense_phase1"] + t_launches["dense_phase1"],
+               max(max_err2, fold_err), timing2)
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -107,6 +107,7 @@ class FingerprintDB:
         scan_mode: str = "bitplane",
         popless: bool = False,
         mesh: Mesh | None = None,
+        keep_full_on_host: bool = True,
     ):
         """``scan_mode``: ``"bitplane"`` stores the library bit-transposed
         and reads only each query's set-bit planes (kernel 1); ``"dense"``
@@ -119,7 +120,10 @@ class FingerprintDB:
         visible card (raises without one); ``device`` is shorthand for a
         one-shard mesh, and ``device="cpu"`` runs the plain versions on the
         host. On the card a library wider than its kernel takes is refused
-        here (:func:`check_kernel_width`), before any upload."""
+        here (:func:`check_kernel_width`), before any upload.
+        ``keep_full_on_host=False`` drops the host rows once the store is
+        built (an unfolded library needs them for nothing but
+        :meth:`get_fingerprint`)."""
         data.validate()
         if scan_mode not in ("dense", "bitplane"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
@@ -147,12 +151,20 @@ class FingerprintDB:
         self.fold_factor = fold_ops.round_fold_factor(
             self.word_count, int(fold_factor)
         )
+        if self.fold_factor > 1 and not keep_full_on_host:
+            raise ValueError(
+                "folded search needs a full-width rescore source; keep "
+                "keep_full_on_host=True (free for .tfsim-mapped data: the "
+                "'host copy' is a zero-copy view of the memory-mapped file)"
+            )
         for device_type in {d.type for d in self.mesh.devices}:
             check_kernel_width(device_type, scan_mode, self.device_bitcount)
         # full-width fingerprint bytes this process read to build its shards
         self.loaded_fp_bytes: int | None = None
         self._store: sharded.ShardedStore | None = None
         self.upload()
+        if not keep_full_on_host:
+            self._full_words = None
 
     def upload(self) -> None:
         """Build this process's shards: each shard's span of the rows is
@@ -220,6 +232,13 @@ class FingerprintDB:
     @property
     def store(self) -> sharded.ShardedStore:
         return self._store
+
+    def get_fingerprint(self, index: int) -> np.ndarray:
+        """Full-width packed words of row ``index`` (reference
+        ``FingerprintDB::getFingerprint``, ``fingerprintdb_cuda.cu:212-226``)."""
+        if self._full_words is None:
+            raise ValueError("full-width matrix not retained on host")
+        return np.array(self._full_words[index])
 
     def get_smiles(self, index: int) -> str:
         return self._smiles[index].decode("utf-8", "replace")

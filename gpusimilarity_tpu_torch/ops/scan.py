@@ -27,9 +27,13 @@ _POPCOUNT_TABLE = np.unpackbits(
 
 
 def popcount_rows_np(words: np.ndarray) -> np.ndarray:
-    """Host-side popcount of packed rows: ``uint32[N, W] -> int32[N]``."""
-    as_bytes = np.ascontiguousarray(words).view(np.uint8)
-    return _POPCOUNT_TABLE[as_bytes].sum(axis=-1, dtype=np.int32)
+    """Host-side popcount of packed rows: ``uint32[N, W] -> int32[N]``:
+    ``np.bitwise_count`` of the 32-bit words where numpy has it (numpy 2), a
+    byte table otherwise; the same counts either way."""
+    words = np.ascontiguousarray(words)
+    if hasattr(np, "bitwise_count") and words.dtype.itemsize == 4:
+        return np.bitwise_count(words.view(np.uint32)).sum(axis=-1, dtype=np.int32)
+    return _POPCOUNT_TABLE[words.view(np.uint8)].sum(axis=-1, dtype=np.int32)
 
 
 def scores_np(
@@ -43,8 +47,7 @@ def scores_np(
     package's ``scores_np``): ``(N, W), (..., W) -> f32 (..., N)``,
     computed in float64 and rounded once to float32. The host rescore of
     folded-scan candidates when the native library is absent."""
-    inter = np.ascontiguousarray(db_words & query_words[..., None, :])
-    c = _POPCOUNT_TABLE[inter.view(np.uint8)].sum(axis=-1)
+    c = popcount_rows_np(db_words & query_words[..., None, :])
     dp = popcount_rows_np(db_words).astype(np.float64)
     qp = popcount_rows_np(query_words.reshape(-1, query_words.shape[-1]))
     qp = qp.reshape(query_words.shape[:-1])[..., None].astype(np.float64)

@@ -25,7 +25,14 @@ import torch
 
 from ..ops import fold as fold_ops
 from ..ops.bitplane import shr, wrap_int32
-from ..ops.scan import popcount_rows, popcount_rows_np
+from ..ops.scan import (
+    TANIMOTO,
+    popcount_rows,
+    popcount_rows_np,
+    scores_np,
+    similarity_from_counts,
+)
+from ..ops.topk import topk_lowest_index
 from ..parallel.mesh import resolve_device
 from ..parallel.sharded import (
     SELECT_BLOCK_COLS,
@@ -371,3 +378,114 @@ def pick_query_rows(
         picked.extend(int(c) for c, p in zip(cand, fp) if p <= max_planes)
     return np.array(picked[:count], dtype=np.int64)
 
+
+
+def virtual_full_topk(
+    n_rows: int,
+    queries_full: np.ndarray,
+    k: int,
+    seed: int = 0,
+    word_count: int = 32,
+    row_chunk: int = 1 << 16,
+    cutoffs=(),
+    device: torch.device | str | None = None,
+):
+    """Exact full-width top-k over the first ``n_rows`` virtual rows,
+    computed on ``device`` (the card unless told otherwise; twin of the JAX
+    ``virtual_full_topk``): the oracle of folded-search recall at sizes where
+    no full-width matrix can be stored. Rows are made chunk by chunk with
+    :func:`virtual_rows` and scored at full width, and only a running
+    ``(B, k)`` top-k survives, with exact ``>= cutoff`` counts for every
+    query against every cutoff. Ties go to the lowest index, across chunks
+    too. Returns numpy ``(scores f32 (B, k), indices i64 (B, k), counts i64
+    (B, len(cutoffs)))``; past the row count the entries are -inf / -1.
+
+    Plain PyTorch, not a kernel: the intersection counts are a float32
+    product of 0/1 bit matrices, exact because the sums stay <= the
+    bitcount.
+    """
+    q = np.ascontiguousarray(queries_full, dtype=np.uint32)
+    if q.ndim == 1:
+        q = q[None, :]
+    b, w = q.shape
+    if w != word_count:
+        raise ValueError(f"queries have {w} words, library has {word_count}")
+    device = resolve_device(device)
+    chunk = min(row_chunk, max(128, n_rows))
+    shifts = torch.arange(32, dtype=torch.int32, device=device)
+
+    def bits(words):
+        return ((words[:, :, None] >> shifts) & 1).reshape(len(words), -1).float()
+
+    qt = torch.from_numpy(q.view(np.int32)).to(device)
+    qbits, qpops = bits(qt), popcount_rows(qt)
+    cut = torch.tensor(np.asarray(cutoffs, np.float32).reshape(-1), device=device)
+    best_v = torch.full((b, 0), float("-inf"), device=device)
+    best_i = torch.full((b, 0), -1, dtype=torch.int64, device=device)
+    counts = torch.zeros((b, len(cut)), dtype=torch.int64, device=device)
+    for lo in range(0, n_rows, chunk):
+        hi = min(n_rows, lo + chunk)
+        rows = virtual_rows(lo, hi - lo, word_count, seed, device)
+        common = (qbits @ bits(rows).T).to(torch.int32)  # (B, rows)
+        s = similarity_from_counts(common, popcount_rows(rows), qpops)
+        counts += (s[:, None, :] >= cut[None, :, None]).sum(dim=-1)
+        v = torch.cat([best_v, s], dim=1)
+        i = torch.cat([best_i, torch.arange(lo, hi, device=device).expand(b, -1)], dim=1)
+        best_v, pos = topk_lowest_index(v, min(k, v.shape[1]), tiebreak=i)
+        best_i = torch.gather(i, 1, pos)
+    pad = k - best_v.shape[1]
+    vals = np.concatenate(
+        [best_v.cpu().numpy(), np.full((b, pad), -np.inf, np.float32)], axis=1)
+    idx = np.concatenate(
+        [best_i.cpu().numpy(), np.full((b, pad), -1, np.int64)], axis=1)
+    return vals, idx, counts.cpu().numpy()
+
+
+def virtual_matrix(n_rows: int, word_count: int = 32, seed: int = 0) -> np.ndarray:
+    """Full-width matrix ``uint32 (n_rows, word_count)`` of the first
+    ``n_rows`` virtual rows in host RAM (twin of the JAX
+    ``virtual_matrix``): the native fill when the library is built, numpy
+    slabs otherwise."""
+    from . import native
+
+    try:
+        return native.synth_fill(n_rows, word_count=word_count, seed=seed)
+    except ImportError:
+        out = np.empty((n_rows, word_count), np.uint32)
+        for lo in range(0, n_rows, _GEN_ROWS):
+            hi = min(lo + _GEN_ROWS, n_rows)
+            out[lo:hi] = virtual_rows_np(np.arange(lo, hi), word_count, seed)
+        return out
+
+
+def rescore_candidates_np(
+    indices: np.ndarray,
+    query_full: np.ndarray,
+    k: int,
+    n_rows: int,
+    seed: int = 0,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+):
+    """Exact full-width rescore of folded-scan candidates on the host (twin
+    of the JAX ``rescore_candidates_np``): the candidates' rows are
+    recomputed from the mixer (``native.synth_rescore`` when the library is
+    built, :func:`virtual_rows_np` and :func:`~..ops.scan.scores_np`
+    otherwise), scored against the full-width query and ordered by
+    ``(-score, index)``. Returns ``(scores, indices)`` cut to ``k``."""
+    from . import native
+
+    indices = np.asarray(indices)
+    keep = (indices >= 0) & (indices < n_rows)
+    indices = np.sort(indices[keep].astype(np.int64))
+    try:
+        scores = native.synth_rescore(
+            indices, np.asarray(query_full, np.uint32), seed=seed,
+            alpha=alpha, beta=beta, tversky=similarity != TANIMOTO,
+        )
+    except ImportError:
+        rows = virtual_rows_np(indices, word_count=len(query_full), seed=seed)
+        scores = scores_np(rows, query_full[None, :], similarity, alpha, beta)[0]
+    order = np.lexsort((indices, -scores))[:k]
+    return scores[order], indices[order]

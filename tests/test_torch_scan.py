@@ -32,6 +32,23 @@ def test_popcount_rows_matches_numpy(rng):
     np.testing.assert_array_equal(tscan.popcount_rows_np(words), got)
 
 
+@pytest.mark.parametrize("bitwise_count", [True, False], ids=["numpy2", "byte_table"])
+def test_popcount_rows_np_and_scores_np_match_jax(rng, monkeypatch, bitwise_count):
+    """The host popcount counts 32-bit words with ``np.bitwise_count`` where
+    numpy has it and with a byte table otherwise: both equal the JAX
+    package's, and so do the scores built on them."""
+    if not bitwise_count:
+        monkeypatch.delattr(np, "bitwise_count", raising=False)
+    words = _packed(rng, 300, density=0.5)
+    words[0], words[1], words[2] = 0xFFFFFFFF, 0x80000000, 0
+    got = tscan.popcount_rows_np(words)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, jscan.popcount_rows_np(words))
+    np.testing.assert_array_equal(tscan.popcount_rows_np(words.view(np.uint8)), got)
+    np.testing.assert_array_equal(tscan.scores_np(words, words[:5]),
+                                  jscan.scores_np(words, words[:5]))
+
+
 def test_popcount_words_edge_values():
     vals = np.array(
         [0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0x55555555, 0xAAAAAAAA,
