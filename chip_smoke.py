@@ -92,12 +92,22 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     exact; (t6) ``flagship_server_bench`` on a synthetic ``.tfsim`` of
     113,335,291 rows (cut from 1,020,017,472: its ids are stored) at fold
     4, every answer exact.
+(u) the port's last tools, run the same way: (u1) ``northstar`` at fold 4
+    on 113,335,291 rows (cut from 1,024,000,000: it writes 45 bytes of
+    string blobs a row, 4.8 GiB here), 12/12 exact, recall against its
+    full-width oracle printed, the server's page-prewarm line seen; (u2)
+    ``chem_scale`` on 200,000 compounds (cut from 5,000,000: ``createdb``
+    runs the pure-Python SMILES path in a checkout without the native
+    library), 8/8 self-matches; (u3) ``probe_fold_batch`` and
+    ``probe_wordsel`` and (u4) ``probe_phase1`` at their defaults (352Mi
+    rows fold 4; 100,663,296 rows), every time at or above its bound;
+    (u5) ``verify_exactdiv``, 0 mismatches.
 
 The main path of each kernel is driven with its launch counter reset just
-before and read just after: the bitplane kernel in (c), (d), (g), (h), (s)
-and (t), the dense kernel in (e), (f), (s) and (t) (the servers' counts come
-from ``/stats``; the two-process server's from process 0's; (t)'s bench
-reports its own run's counts),
+before and read just after: the bitplane kernel in (c), (d), (g), (h), (s),
+(t) and (u), the dense kernel in (e), (f), (s), (t) and (u) (the servers'
+counts come from ``/stats``; the two-process server's from process 0's;
+(t)'s bench and (u)'s tools report their own run's counts),
 the matrix-product kernel in the probe of (m), which is the one entry point
 that runs it. (s) reads its counts around each sharded search and server
 it checks. Launches made in (b), (b2), (p), (p2) and (m) before the probe,
@@ -1918,11 +1928,13 @@ ACCURACY_CHECK = ("--rows", 50_000, "--queries", 10)  # (t3): card vs host
 FLAGSHIP_ROWS = LIB_ROWS
 
 
-def _tool(tag, name, *args, env=None, timeout=900, one_line=False, result=True):
+def _tool(tag, name, *args, env=None, timeout=900, one_line=False, result=True,
+          every_line=False):
     """Run ``python -m gpusimilarity_tpu_torch.tools.<name> args`` from the
     repository root (a subprocess, as a user runs it); it must exit 0. Its
     last stdout line is its JSON result (unless ``result`` is false): logged
-    beside the card, returned parsed."""
+    beside the card, returned parsed. ``every_line``: every stdout line is
+    a JSON result; each is logged, and the list is returned."""
     t0 = time.monotonic()
     proc = subprocess.run(
         [sys.executable, "-m", f"{TOOLS}.{name}", *map(str, args)], cwd=ROOT,
@@ -1938,6 +1950,12 @@ def _tool(tag, name, *args, env=None, timeout=900, one_line=False, result=True):
     lines = proc.stdout.strip().splitlines()
     check(bool(lines) and (len(lines) == 1 or not one_line),
           f"[{tag}] {name} printed {len(lines)} stdout lines, not one")
+    if every_line:
+        log(f"[{tag}] {name} {' '.join(map(str, args))} in "
+            f"{time.monotonic() - t0:.1f}s ({gpu_line()}):")
+        for line in lines:
+            log(f"[{tag}]   {line}")
+        return [json.loads(line) for line in lines]
     log(f"[{tag}] {name} {' '.join(map(str, args))} "
         f"{' '.join(f'{k}={v}' for k, v in (env or {}).items())} in "
         f"{time.monotonic() - t0:.1f}s ({gpu_line()}): {lines[-1]}")
@@ -2073,6 +2091,70 @@ def phase_flagship(directory, launches):
     return p
 
 
+# (u1): northstar's rows, cut from its 1,024,000,000: the run writes 45 bytes
+# of string blobs a row (4.8 GiB here; 42.9 GiB at full size) and serves them
+NORTHSTAR_ROWS = LIB_ROWS
+NORTHSTAR_FULL_ROWS = 1_024_000_000
+CHEM_ROWS = 200_000  # (u2): chem_scale's compounds, cut from 5,000,000
+CHEM_FULL_ROWS = 5_000_000
+
+
+def phase_northstar(directory, launches):
+    """(u1) the north-star run on ``NORTHSTAR_ROWS`` rows at fold 4: every
+    query exact, recall against the full-width oracle printed, the server's
+    page prewarm logged (its memory-mapped string blobs warmed)."""
+    log(f"[u1] northstar cut from {NORTHSTAR_FULL_ROWS:,} to {NORTHSTAR_ROWS:,} "
+        f"rows ({gpu_line()})")
+    p = _tool("u1", "northstar", "--rows", NORTHSTAR_ROWS, "--fold", 4,
+              "--dir", directory, timeout=1200)
+    check(p["exactness_checks_passed"] == "12/12" and p["fold"] == 4,
+          f"[u1] {p['exactness_checks_passed']} exact at fold {p['fold']}")
+    check(p["prewarm"].startswith("prewarmed"), f"[u1] prewarm line {p['prewarm']!r}")
+    check(0.0 <= p["recall_at_k"] <= 1.0, f"[u1] recall {p['recall_at_k']}")
+    _add_launches(launches, p)
+    return p
+
+
+def phase_chem_scale(directory, launches):
+    """(u2) chem_scale's SMILES corpus of ``CHEM_ROWS`` compounds through
+    ``cli.createdb``, then every sampled row found as its own top hit."""
+    log(f"[u2] chem_scale cut from {CHEM_FULL_ROWS:,} to {CHEM_ROWS:,} compounds "
+        f"({gpu_line()})")
+    p = _tool("u2", "chem_scale", "--rows", CHEM_ROWS, "--dir", directory)
+    check(p["self_match"] == "8/8" and p["rows"] == CHEM_ROWS,
+          f"[u2] self_match {p['self_match']} over {p['rows']} rows")
+    _add_launches(launches, p)
+    return p
+
+
+def phase_probes(launches):
+    """(u3) probe_fold_batch and probe_wordsel, (u4) probe_phase1, all at
+    their defaults: every stage and configuration timed, no time under its
+    bound (a time under it would be a wrong bound or a lost launch)."""
+    from gpusimilarity_tpu_torch.tools.probe_phase1 import CONFIGS
+
+    out = {}
+    for tag, name, n_timed in (("u3", "probe_fold_batch", 3), ("u3", "probe_wordsel", 3),
+                               ("u4", "probe_phase1", len(CONFIGS))):
+        with phase(tag):
+            lines = _tool(tag, name, every_line=True)
+        timed_lines = [p for p in lines if "ms" in p]
+        check(len(timed_lines) == n_timed, f"[{tag}] {name}: {len(timed_lines)} timed lines")
+        for p in timed_lines:
+            check(p["ms"] >= p["bound_ms"] > 0, f"[{tag}] {name} under its bound: {p}")
+        _add_launches(launches, lines[-1])
+        out[name] = lines
+    return out
+
+
+def phase_exactdiv():
+    """(u5) verify_exactdiv: torch's float32 divide on the card and the
+    cutoff predicate over every Tanimoto quotient, 0 mismatches."""
+    p = _tool("u5", "verify_exactdiv")
+    check(p["mismatches"] == 0 and p["device"].startswith("cuda"), f"[u5] {p}")
+    return p
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2204,13 +2286,43 @@ def main() -> int:
             flagship = phase_flagship(tmp, t_launches)
     check(all(t_launches.values()), f"(t) launched no kernel: {t_launches}")
 
+    # (u): the port's last tools, each a subprocess reporting its own
+    # launches (northstar its server's /stats)
+    u_launches = {"bitplane_phase1": 0, "dense_phase1": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("u1"):
+            northstar = phase_northstar(tmp, u_launches)
+        with phase("u2"):
+            chem = phase_chem_scale(tmp, u_launches)
+    probes = phase_probes(u_launches)
+    with phase("u5"):
+        exactdiv = phase_exactdiv()
+    check(all(u_launches.values()), f"(u) launched no kernel: {u_launches}")
+
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}, entry points "
         f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}; "
         f"dense engine {dense_engine_launches}, server {folded_server_launches}, "
         f"sharded {s_launches['dense_phase1']}; matrix-product probe "
         f"{probe_launches}; measurement entry points (t) bitplane "
-        f"{t_launches['bitplane_phase1']}, dense {t_launches['dense_phase1']}")
+        f"{t_launches['bitplane_phase1']}, dense {t_launches['dense_phase1']}; "
+        f"last tools (u) bitplane {u_launches['bitplane_phase1']}, dense "
+        f"{u_launches['dense_phase1']}")
+    split = probes["probe_fold_batch"][-1]
+    wordsel = probes["probe_wordsel"][-1]
+    log(f"last tools ({gpu_line()}): northstar {northstar['rows']:,} rows fold 4 "
+        f"p50 {northstar['value']} ms, warm {northstar['warm_p50_ms']} ms, cold start "
+        f"{northstar['cold_start_s']} s, prewarm done {northstar['prewarm_done_s']} s "
+        f"({northstar['prewarm']}), recall@{northstar['k']} "
+        f"{northstar['recall_at_k']} (min {northstar['recall_at_k_min']}, >=0.5 "
+        f"{northstar['recall_strong_ge_0.5']}); chem_scale {chem['rows']:,} compounds "
+        f"{chem['value']} mol/s, self_match {chem['self_match']}; fold-4 bitplane "
+        f"B=32 {split['rows']:,} rows: kernel 1 {split['phase1_ms']} ms (bound "
+        f"{split['kernel_bound_ms']}), selection {split['selection_ms']} ms (s1 "
+        f"{wordsel['s1_ms']}, s2 +{wordsel['s2_delta_ms']}, s3 "
+        f"+{wordsel['s3_delta_ms']}), host and rescore "
+        f"{split['host_and_rescore_ms']} ms; exact divide mismatches "
+        f"{exactdiv['mismatches']}")
     log(f"measurement entry points ({gpu_line()}): bench "
         + "; ".join(f"{mode} {p['rows']:,} rows {p['value']:.4g} fp/s "
                     f"(vs_baseline {p['vs_baseline']}), p50 B=1 "
@@ -2268,11 +2380,13 @@ def main() -> int:
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
                + entry_points["launches"] + s_launches["bitplane_phase1"]
-               + t_launches["bitplane_phase1"], max_err, timing)
+               + t_launches["bitplane_phase1"] + u_launches["bitplane_phase1"],
+               max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
     k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches
-               + s_launches["dense_phase1"] + t_launches["dense_phase1"],
+               + s_launches["dense_phase1"] + t_launches["dense_phase1"]
+               + u_launches["dense_phase1"],
                max(max_err2, fold_err), timing2)
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(gpu_line())

@@ -7,12 +7,16 @@
 The library shards over every visible CUDA card; without one the server
 raises, unless ``--cpu_only`` asks for the plain PyTorch path on the host.
 Both phase-1 kernels are built (or loaded from their cached builds) before
-the server prints ``ready``. ``--fold``, ``--gpu_bitcount``, ``--scan_mode``
-and ``--popless`` choose the store as in the JAX server; a library too
-large for the cards is folded and served dense. ``--socket_name`` also
-serves the reference's binary protocol on ``$TMPDIR/<name>``,
-``--http_interface`` the debug HTML UI, and ``--search_timeout_s`` bounds
-each request's wait.
+the server prints ``ready``. A one-process server then warms the host's page
+cache for its memory-mapped rescore rows and string blobs in the background,
+as the JAX server does by default, and logs ``prewarmed N GiB of rescore
+pages in S s`` (or ``rescore prewarm skipped (...)`` / ``rescore prewarm not
+needed (...)``); a multi-process job warms before it serves. ``--fold``,
+``--gpu_bitcount``, ``--scan_mode`` and ``--popless`` choose the store as in
+the JAX server; a library too large for the cards is folded and served
+dense. ``--socket_name`` also serves the reference's binary protocol on
+``$TMPDIR/<name>``, ``--http_interface`` the debug HTML UI, and
+``--search_timeout_s`` bounds each request's wait.
 
 Multi-process serving, one process per host (or several sharing a card)::
 
@@ -28,7 +32,8 @@ until process 0 shuts down.
 The JAX server's other flags have no counterpart here: ``--pallas`` (the
 CUDA kernels are the only device path), ``--no_warmup``,
 ``--warmup_batch``, ``--warmup_ks`` and ``--jax_cache_dir`` (PyTorch
-compiles no program per shape, so there is nothing to warm or cache) and
+compiles no program per shape, so there is nothing to warm or cache; the
+page prewarm above runs as under the JAX server's default) and
 ``--jax_profiler_port`` (``torch.profiler`` traces in process).
 """
 
@@ -137,6 +142,7 @@ def main(argv=None):
     registry = DatabaseRegistry.from_fsim_files(
         args.dbnames, mesh=mesh, device_bitcount=args.device_bitcount,
         fold_factor=args.fold, scan_mode=args.scan_mode, popless=args.popless,
+        async_prewarm=mesh.n_processes == 1,
     )
     # multi-process: process 0 serves and fans each request out through the
     # controller; the others execute the broadcast requests in a loop

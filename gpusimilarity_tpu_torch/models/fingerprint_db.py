@@ -8,17 +8,21 @@ processes (each process reads and uploads only its shards' rows, and string
 tables held in RAM are cut to its span), ``search``, ``search_batch`` (a
 ``(B, W)`` batch with per-query k and cutoff in one kernel launch per
 shard), ``_assemble`` with the exact full-width rescore of folded-scan
-candidates, and the fetch-width rule ``_k_bucket``.
+candidates, the fetch-width rule ``_k_bucket``, and the host page-cache
+prewarm of memory-mapped rescore sources and string blobs after the upload
+(``upload(async_prewarm=...)``, :meth:`FingerprintDB.join_prewarm`).
 
 Not ported, because PyTorch runs eagerly and has no compile latency to
 hide: ahead-of-time precompiles, serving-time k promotion, background
-compiles, warmup pins and batch-size buckets. Not ported because a card
-holds its shards whole: the page-cache prewarm of memory-mapped rescore
-sources.
+compiles, warmup pins and batch-size buckets.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -34,7 +38,13 @@ from ..parallel import multihost
 from ..parallel.mesh import Mesh, resolve_mesh
 from ..utils import native, synth
 from ..utils.fsim import FingerprintData
+from ..utils.strings import mmap_backing
 from .results import SearchResult
+
+log = logging.getLogger("tpusimilarity")
+# the prewarm touches one byte a page, in slabs of this many bytes
+_PREWARM_SLAB_BYTES = 64 << 20
+_PAGE_BYTES = 4096
 
 
 def _k_bucket(k_fetch: int, count: int) -> int:
@@ -51,27 +61,32 @@ def rescore_rows(full_words, idx, query, similarity=TANIMOTO, alpha=1.0,
     ``full_words`` — an array, a memory map or a lazy ``VirtualWords`` —
     against one packed query: the fold path's host rescore.
 
-    With the native library built it runs :func:`~..utils.native.rescore`
-    or :func:`~..utils.native.synth_rescore`; otherwise the candidates' rows
-    (recomputed from the mixer for a virtual library) go through
-    :func:`~..ops.scan.scores_np`. A virtual library is never materialised
-    beyond its candidates.
+    A virtual library scores through :meth:`~..utils.synth.VirtualWords.
+    rescore` and is never materialised beyond its candidates; stored rows
+    through :func:`~..utils.native.rescore` when the native library is
+    built, else :func:`~..ops.scan.scores_np`.
     """
+    if isinstance(full_words, synth.VirtualWords):
+        return full_words.rescore(idx, query, similarity, alpha, beta)
     idx = np.ascontiguousarray(idx, dtype=np.int64)
     query = np.ascontiguousarray(query, dtype=np.uint32)
-    virtual = isinstance(full_words, synth.VirtualWords)
     if native.available():
-        tversky = similarity != TANIMOTO
-        if virtual:
-            return native.synth_rescore(
-                idx, query, full_words.seed, alpha, beta, tversky
-            )
-        return native.rescore(full_words, idx, query, alpha, beta, tversky)
-    if virtual:
-        rows = synth.virtual_rows_np(idx, full_words.shape[1], full_words.seed)
-    else:
-        rows = np.asarray(full_words[idx])
+        return native.rescore(full_words, idx, query, alpha, beta,
+                              similarity != TANIMOTO)
+    rows = np.asarray(full_words[idx])
     return scores_np(rows, query[None, :], similarity, alpha, beta)[0]
+
+
+def host_memory_bytes() -> int | None:
+    """The host's total RAM (``MemTotal`` of ``/proc/meminfo``), or None."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemTotal"):
+                    return int(line.split()[1]) * 1024
+    except (ValueError, OSError):
+        pass
+    return None
 
 
 def check_kernel_width(device_type: str, scan_mode: str, device_bitcount: int) -> None:
@@ -108,6 +123,7 @@ class FingerprintDB:
         popless: bool = False,
         mesh: Mesh | None = None,
         keep_full_on_host: bool = True,
+        async_prewarm: bool = False,
     ):
         """``scan_mode``: ``"bitplane"`` stores the library bit-transposed
         and reads only each query's set-bit planes (kernel 1); ``"dense"``
@@ -123,7 +139,7 @@ class FingerprintDB:
         here (:func:`check_kernel_width`), before any upload.
         ``keep_full_on_host=False`` drops the host rows once the store is
         built (an unfolded library needs them for nothing but
-        :meth:`get_fingerprint`)."""
+        :meth:`get_fingerprint`). ``async_prewarm`` is :meth:`upload`'s."""
         data.validate()
         if scan_mode not in ("dense", "bitplane"):
             raise ValueError(f"unknown scan_mode {scan_mode!r}")
@@ -162,16 +178,28 @@ class FingerprintDB:
         # full-width fingerprint bytes this process read to build its shards
         self.loaded_fp_bytes: int | None = None
         self._store: sharded.ShardedStore | None = None
-        self.upload()
+        self._prewarm_thread: threading.Thread | None = None
+        if async_prewarm:
+            self.upload(async_prewarm=True)
+        else:
+            self.upload()
         if not keep_full_on_host:
             self._full_words = None
 
-    def upload(self) -> None:
+    def upload(self, async_prewarm: bool = False) -> None:
         """Build this process's shards: each shard's span of the rows is
         folded and transposed onto its device slab by slab, or generated
         there for a virtual library, so the library is never held twice and
         the process reads no row outside its shards. In a multi-process job
-        the string tables held in RAM are then cut to the process's span."""
+        the string tables held in RAM are then cut to the process's span.
+
+        Then the host's page cache is warmed for what every search reads
+        from memory maps (:meth:`_prewarm_rescore_pages`): the full-width
+        rows a folded search rescores and the string blobs every result row
+        reads. ``async_prewarm=True`` (one process only; the server's
+        start-up) warms on a daemon thread while the database already
+        answers (:meth:`join_prewarm` waits for it); otherwise it is done
+        before this returns."""
         if self._store is not None:
             return
         self._store = sharded.build_sharded_store(
@@ -181,6 +209,76 @@ class FingerprintDB:
         self.loaded_fp_bytes = self._store.local_rows * self.word_count * 4
         if self.mesh.n_processes > 1:
             self._shard_host_strings()
+        if not self._rescore_maps():
+            log.info("rescore prewarm not needed (unfolded or RAM-backed)")
+        elif async_prewarm and self.mesh.n_processes == 1:
+            self._prewarm_thread = threading.Thread(
+                target=self._prewarm_rescore_pages, name="tpusim-prewarm",
+                daemon=True,
+            )
+            self._prewarm_thread.start()
+        else:
+            self._prewarm_rescore_pages()
+
+    def join_prewarm(self) -> None:
+        """Block until a background page prewarm has finished."""
+        if self._prewarm_thread is not None:
+            self._prewarm_thread.join()
+
+    def _rescore_maps(self) -> list[np.memmap]:
+        """The memory maps a search reads: the full-width rows when the
+        library is folded and they are mapped, and every mapped string blob,
+        each file once (smiles and ids may be hardlinks of one blob). The
+        gate walks the base chain (:func:`~..utils.strings.mmap_backing`),
+        so a view of a map still counts."""
+        maps = {}
+        if self.fold_factor > 1 and self._full_words is not None:
+            fp = mmap_backing(self._full_words)
+            if fp is not None:
+                maps[id(fp)] = fp
+        for table in (self._smiles, self._ids):
+            mm = mmap_backing(getattr(table, "_blob", None))
+            if mm is None or not mm.size:
+                continue
+            try:
+                st = os.stat(mm.filename)
+                maps[(st.st_dev, st.st_ino)] = mm
+            except (OSError, TypeError):
+                maps[id(mm)] = mm
+        return list(maps.values())
+
+    def _prewarm_rescore_pages(self) -> None:
+        """Touch one byte of every page of :meth:`_rescore_maps`, in order,
+        64 MiB at a time, so the kernel's readahead streams the files into
+        the page cache. Without it the store build evicts part of what it
+        just read and every folded search's exact rescore, and every result
+        row's strings, pay cold random page faults (the JAX package measured
+        2-3 s a query cold against 150 ms warm at 768M rows, about 0.9 s of
+        it in the string blobs). Skipped when the maps exceed 85% of the
+        host's total RAM: they could not stay resident."""
+        maps = self._rescore_maps()
+        nbytes = sum(m.nbytes for m in maps)
+        total = host_memory_bytes()
+        if total is None:
+            log.info("rescore prewarm skipped (no /proc/meminfo)")
+            return
+        # total RAM, not MemAvailable: the build's transient buffers are
+        # still counted against it here, unlike at serve time
+        if nbytes > total * 0.85:
+            log.info(
+                "rescore prewarm skipped (%d GiB of maps exceeds 85%% of RAM)",
+                nbytes >> 30,
+            )
+            return
+        t0 = time.monotonic()
+        for mm in maps:
+            flat = mm.reshape(-1).view(np.uint8)
+            for lo in range(0, flat.size, _PREWARM_SLAB_BYTES):
+                flat[lo:lo + _PREWARM_SLAB_BYTES:_PAGE_BYTES].max()
+        log.info(
+            "prewarmed %d GiB of rescore pages in %.1fs",
+            nbytes >> 30, time.monotonic() - t0,
+        )
 
     def _shard_host_strings(self) -> None:
         """The multi-process string policy. Memory-mapped tables

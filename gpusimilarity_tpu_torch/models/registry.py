@@ -85,6 +85,7 @@ class DatabaseRegistry:
         scan_mode: str = "auto",
         popless: bool = False,
         mesh: Mesh | None = None,
+        async_prewarm: bool = False,
     ) -> "DatabaseRegistry":
         """Load ``.fsim`` files or ``.tfsim`` directories; database names
         are file basenames (reference ``gpusim.cpp:114-116``).
@@ -94,7 +95,11 @@ class DatabaseRegistry:
         ``device_bitcount`` (:meth:`_global_fold`). ``scan_mode`` (``auto``,
         ``dense`` or ``bitplane``) is resolved after it, from the effective
         fold (:func:`resolve_scan_mode`). Every process of a multi-process
-        job calls this with the same arguments, in lockstep."""
+        job calls this with the same arguments, in lockstep.
+        ``async_prewarm=True`` (the one-process server) marks each database
+        ready once it is uploaded and warms its memory-mapped pages on a
+        background thread (``FingerprintDB.upload``); a multi-process job
+        always warms before it returns."""
         reg = cls(device=device, mesh=mesh)
         datas: list[tuple[str, FingerprintData]] = []
         for p in paths:
@@ -117,13 +122,16 @@ class DatabaseRegistry:
         mode = resolve_scan_mode(scan_mode, fold, popless)
         log.info("scan mode %s (requested %s, effective fold %d%s)", mode,
                  scan_mode, fold, ", popless" if popless else "")
+        async_prewarm = async_prewarm and reg.mesh.n_processes == 1
         for name, data in datas:
             t0 = time.monotonic()
-            reg.add(name, data, fold_factor=fold, scan_mode=mode, popless=popless)
+            reg.add(name, data, fold_factor=fold, scan_mode=mode, popless=popless,
+                    async_prewarm=async_prewarm)
             log.info(
-                "uploaded %s to %d shards on %s (%.2fs)", name,
+                "uploaded %s to %d shards on %s (%.2fs%s)", name,
                 reg.mesh.n_shards, ", ".join(map(str, reg.mesh.distinct_devices)),
                 time.monotonic() - t0,
+                "; page prewarm continues in background" if async_prewarm else "",
             )
         return reg
 
@@ -166,12 +174,13 @@ class DatabaseRegistry:
         fold_factor: int = 1,
         scan_mode: str = "bitplane",
         popless: bool = False,
+        async_prewarm: bool = False,
     ) -> FingerprintDB:
         if name in self._dbs:
             raise ValueError(f"database name {name!r} already loaded")
         db = FingerprintDB(
             data, fold_factor=fold_factor, scan_mode=scan_mode,
-            popless=popless, mesh=self.mesh,
+            popless=popless, mesh=self.mesh, async_prewarm=async_prewarm,
         )
         self._dbs[name] = db
         return db

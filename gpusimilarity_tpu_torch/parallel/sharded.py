@@ -195,39 +195,62 @@ def bitplane_local_topk(
     >= k word maxima, so the returned score multiset is exact (indices of
     equal-scoring boundary rows may differ from a dense scan's).
     """
-    planes, pops = store.planes, store.popcounts
-    dev = planes.device
-    alpha_beta = torch.tensor([alpha, beta], dtype=torch.float32, device=dev)
+    alpha_beta = torch.tensor([alpha, beta], dtype=torch.float32,
+                              device=store.planes.device)
     block_max, counts, colmax = bitplane_phase1_batched(
-        planes, pops, plane_idx, query_pops, cutoffs, alpha_beta,
-        store.n_valid, similarity,
+        store.planes, store.popcounts, plane_idx, query_pops, cutoffs,
+        alpha_beta, store.n_valid, similarity,
     )
-    b = plane_idx.shape[0]
-    n_blocks = block_max.shape[1]
-    k_blocks = min(k, n_blocks)
-    _, selb = topk_lowest_index(block_max, k_blocks)
-    selb = torch.sort(selb, dim=-1).values
+    w_sel = select_words(colmax, select_blocks(block_max, k), k)
+    vals, idx = rescore_words(store, plane_idx, query_pops, w_sel, k,
+                              similarity, alpha, beta)
+    return vals, idx, counts.to(torch.int64)
+
+
+def select_blocks(block_max: torch.Tensor, k: int) -> torch.Tensor:
+    """Selection stage 1: the top-k blocks of each query by block maximum,
+    ascending, int64 ``(B, min(k, n_blocks))``."""
+    _, selb = topk_lowest_index(block_max, min(k, block_max.shape[1]))
+    return torch.sort(selb, dim=-1).values
+
+
+def select_words(colmax: torch.Tensor, selb: torch.Tensor, k: int) -> torch.Tensor:
+    """Selection stage 2: the top-k plane words by word maximum within the
+    blocks ``selb``, int64 ``(B, k_words)``."""
     widx = (
         selb[:, :, None] * BLOCK_WORDS
-        + torch.arange(BLOCK_WORDS, device=dev)
-    ).reshape(b, -1)  # (B, k_blocks * 64) candidate words, ascending
+        + torch.arange(BLOCK_WORDS, device=selb.device)
+    ).reshape(selb.shape[0], -1)  # (B, k_blocks * 64) candidate words, ascending
     wmax = torch.gather(colmax, 1, widx)
-    k_words = min(k, widx.shape[1])
-    _, wpos = topk_lowest_index(wmax, k_words)
-    w_sel = torch.gather(widx, 1, wpos)  # (B, k_words)
+    _, wpos = topk_lowest_index(wmax, min(k, widx.shape[1]))
+    return torch.gather(widx, 1, wpos)
 
-    # exact rescore of the selected words: (P, B, k_words) plane words
-    pw = planes[plane_idx.to(torch.int64).T[:, :, None], w_sel[None, :, :]]
+
+def rescore_words(
+    store: BitplaneStore,
+    plane_idx: torch.Tensor,
+    query_pops: torch.Tensor,
+    w_sel: torch.Tensor,
+    k: int,
+    similarity: str = TANIMOTO,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selection stage 3: the exact scores of the 32 columns of each
+    selected word (the query's planes gathered, summed by the carry-save
+    tree) and their lowest-index top-k, ``(values (B, k), indices (B, k))``."""
+    dev = store.planes.device
+    # (P, B, k_words) plane words
+    pw = store.planes[plane_idx.to(torch.int64).T[:, :, None], w_sel[None, :, :]]
     common = counters_to_counts(wallace_popcount_planes(pw))  # (B, kw*32)
     cols = (
         w_sel[:, :, None] * 32 + torch.arange(32, device=dev)
-    ).reshape(b, -1)
+    ).reshape(w_sel.shape[0], -1)
     s = similarity_from_counts(
-        common, pops[cols], query_pops, similarity, alpha, beta
+        common, store.popcounts[cols], query_pops, similarity, alpha, beta
     )
     s = torch.where(cols < store.n_valid, s, NEG_INF)
-    vals, idx = _topk_padded(s, cols, k)
-    return vals, idx, counts.to(torch.int64)
+    return _topk_padded(s, cols, k)
 
 
 def _topk_padded(scores, cols, k):

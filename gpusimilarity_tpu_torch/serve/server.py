@@ -372,7 +372,11 @@ class SimilarityServer:
         self._thread.start()
 
     def close(self):
-        self.httpd.shutdown()
+        # only a loop on another thread needs stopping: shutdown() waits for
+        # a loop to end, forever if none ever started (a SIGINT just before
+        # serve_forever)
+        if self._thread:
+            self.httpd.shutdown()
         self.httpd.server_close()
         if self.socket_server:
             self.socket_server.close()

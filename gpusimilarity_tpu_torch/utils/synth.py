@@ -162,6 +162,27 @@ class VirtualWords:
             idx = np.where(idx < 0, idx + n, idx).astype(np.int64)
         return virtual_rows_np(idx, word_count=w, seed=self.seed)
 
+    def rescore(self, indices, query_full, similarity: str = TANIMOTO,
+                alpha: float = 1.0, beta: float = 1.0) -> np.ndarray:
+        """Exact full-width scores ``f32 (K,)`` of rows ``indices`` against
+        the packed query ``query_full``, the virtual counterpart of
+        ``native.rescore`` over a memory map: ``native.synth_rescore`` when
+        the native library loads, else the rows remade by
+        :func:`virtual_rows_np` through :func:`~..ops.scan.scores_np`. Only
+        the candidates' rows are ever made."""
+        from . import native
+
+        indices = np.ascontiguousarray(indices, dtype=np.int64)
+        query_full = np.ascontiguousarray(query_full, dtype=np.uint32)
+        try:
+            return native.synth_rescore(
+                indices, query_full, seed=self.seed, alpha=alpha, beta=beta,
+                tversky=similarity != TANIMOTO,
+            )
+        except ImportError:
+            rows = virtual_rows_np(indices, word_count=self.shape[1], seed=self.seed)
+            return scores_np(rows, query_full[None, :], similarity, alpha, beta)[0]
+
 
 class VirtualFingerprints:
     """Lazy ``uint8 (count, bitcount // 8)`` face of a virtual library —
@@ -469,23 +490,13 @@ def rescore_candidates_np(
     beta: float = 1.0,
 ):
     """Exact full-width rescore of folded-scan candidates on the host (twin
-    of the JAX ``rescore_candidates_np``): the candidates' rows are
-    recomputed from the mixer (``native.synth_rescore`` when the library is
-    built, :func:`virtual_rows_np` and :func:`~..ops.scan.scores_np`
-    otherwise), scored against the full-width query and ordered by
-    ``(-score, index)``. Returns ``(scores, indices)`` cut to ``k``."""
-    from . import native
-
+    of the JAX ``rescore_candidates_np``): the candidates are scored by
+    :meth:`VirtualWords.rescore` against the full-width query and ordered
+    by ``(-score, index)``. Returns ``(scores, indices)`` cut to ``k``."""
     indices = np.asarray(indices)
     keep = (indices >= 0) & (indices < n_rows)
     indices = np.sort(indices[keep].astype(np.int64))
-    try:
-        scores = native.synth_rescore(
-            indices, np.asarray(query_full, np.uint32), seed=seed,
-            alpha=alpha, beta=beta, tversky=similarity != TANIMOTO,
-        )
-    except ImportError:
-        rows = virtual_rows_np(indices, word_count=len(query_full), seed=seed)
-        scores = scores_np(rows, query_full[None, :], similarity, alpha, beta)[0]
+    scores = VirtualWords(n_rows, len(query_full), seed).rescore(
+        indices, query_full, similarity, alpha, beta)
     order = np.lexsort((indices, -scores))[:k]
     return scores[order], indices[order]

@@ -270,16 +270,15 @@ def _write_npy_header(f, shape: tuple, dtype_str: str) -> None:
 
 
 class TfsimStreamWriter:
-    """Stream rows straight into a ``.tfsim`` directory.
+    """Stream rows straight into a ``.tfsim`` directory (the same bytes as
+    the JAX package's writer for the same batches).
 
     Building ``.fsim`` and converting afterwards writes the library twice
     and needs all of it in RAM. This writer appends fingerprint rows and
     string records batch-by-batch with O(batch) memory (offsets stream to
     disk too), then stamps the final counts into the reserved npy headers
     on :meth:`close`. Builds atomically under a temp name like
-    :func:`save_native`. The JAX package's writer also writes synthetic and
-    fixed-width-string layouts; ``createdb``, its one caller here, needs
-    neither.
+    :func:`save_native`.
     """
 
     def __init__(
@@ -289,7 +288,15 @@ class TfsimStreamWriter:
         dbkey: str = "",
         generator: str = "",
         overwrite: bool = False,
+        synthetic_seed: int | None = None,
+        strided: "dict[str, int] | None" = None,
     ):
+        """``synthetic_seed``: write a v3 synthetic-fingerprint database,
+        with no ``fingerprints.npy`` (rows are the counter-mixer function of
+        their index, ``utils/synth.py``); ``append_batch`` then takes
+        ``fingerprints=None``. ``strided``: a fixed record width per field
+        (e.g. ``{"ids": 13}``); that field writes a bare fixed-width blob
+        with no offsets index (16 bytes a row saved)."""
         self.path = Path(path)
         self._overwrite = overwrite
         if self.path.exists() and not overwrite:
@@ -299,67 +306,123 @@ class TfsimStreamWriter:
         self.generator = generator
         self.count = 0
         self._row_bytes = bitcount // 8
+        self._synthetic_seed = synthetic_seed
+        self._strided = dict(strided or {})
         self._tmp = self.path.with_name(self.path.name + f".tmp.{os.getpid()}")
         self._tmp.mkdir(parents=True, exist_ok=False)
-        self._fp = open(self._tmp / "fingerprints.npy", "wb")
-        self._fp.write(b"\0" * _NPY_HEADER_LEN)
+        self._fp = None
+        if synthetic_seed is None:
+            self._fp = open(self._tmp / "fingerprints.npy", "wb")
+            self._fp.write(b"\0" * _NPY_HEADER_LEN)
         self._files = {}
         self._offsets = {}
         self._tails = {}
         for field in ("smiles", "ids"):
             self._files[field] = open(self._tmp / f"{field}.blob", "wb")
-            self._offsets[field] = open(self._tmp / f"{field}.idx.npy", "wb")
-            self._offsets[field].write(b"\0" * _NPY_HEADER_LEN)
+            if field not in self._strided:
+                self._offsets[field] = open(self._tmp / f"{field}.idx.npy", "wb")
+                self._offsets[field].write(b"\0" * _NPY_HEADER_LEN)
             self._tails[field] = 0
 
-    def append_batch(self, fingerprints: "np.ndarray | bytes", smiles, ids) -> None:
-        """Append rows: packed fingerprint bytes + parallel ``list[bytes]``
-        string batches."""
-        if isinstance(fingerprints, (bytes, bytearray, memoryview)):
-            fp = np.frombuffer(fingerprints, np.uint8)
+    def _write_strided(self, field: str, strings) -> int:
+        """Write one fixed-width field batch; returns its record count."""
+        width = self._strided[field]
+        if isinstance(strings, np.ndarray):
+            raw = np.ascontiguousarray(strings, dtype=np.uint8).tobytes()
+        elif isinstance(strings, (bytes, bytearray, memoryview)):
+            raw = bytes(strings)
         else:
-            fp = np.asarray(fingerprints)
-            if fp.dtype != np.uint8:
-                # np.asarray(arr, np.uint8) would VALUE-truncate packed
-                # uint32 words (every word mod 256) and write a silently
-                # corrupt database; callers with packed words must pass
-                # row-major bytes (e.g. arr.view/astype explicitly)
-                raise TypeError(
-                    f"fingerprints must be raw uint8 bytes, got dtype "
-                    f"{fp.dtype}; reinterpret packed words with "
-                    ".view(np.uint8) (little-endian rows) instead"
-                )
-        fp = np.ascontiguousarray(fp).reshape(-1, self._row_bytes)
-        n = fp.shape[0]
-        self._fp.write(fp.tobytes())
-        for field, strings in (("smiles", smiles), ("ids", ids)):
             strings = list(strings)
-            if len(strings) != n:
+            bad = [s for s in strings if len(s) != width]
+            if bad:
                 raise ValueError(
-                    f"batch mismatch: {n} rows but {len(strings)} {field} records"
+                    f"strided field {field!r} needs {width}-byte records; "
+                    f"got length {len(bad[0])}"
                 )
-            pos = self._tails[field]
-            spans = np.empty((n, 2), np.int64)
-            for i, s in enumerate(strings):
-                spans[i] = (pos, pos + len(s))
-                pos += len(s)
-            self._files[field].write(b"".join(strings))
-            self._offsets[field].write(spans.tobytes())
-            self._tails[field] = pos
+            raw = b"".join(strings)
+        if len(raw) % width:
+            raise ValueError(
+                f"strided field {field!r}: {len(raw)} bytes is not a "
+                f"multiple of record width {width}"
+            )
+        self._files[field].write(raw)
+        return len(raw) // width
+
+    def append_batch(self, fingerprints: "np.ndarray | bytes | None", smiles,
+                     ids) -> None:
+        """Append rows: packed fingerprint bytes and parallel string batches.
+
+        String batches are ``list[bytes]`` (any field) or, for strided
+        fields, raw fixed-width bytes or a ``uint8 (n, width)`` array.
+        ``fingerprints`` must be None exactly when the writer is synthetic.
+        """
+        n = None
+        if self._fp is None:
+            if fingerprints is not None:
+                raise ValueError(
+                    "synthetic writer: pass fingerprints=None (rows are "
+                    "derived from the index)"
+                )
+        else:
+            if isinstance(fingerprints, (bytes, bytearray, memoryview)):
+                fp = np.frombuffer(fingerprints, np.uint8)
+            else:
+                fp = np.asarray(fingerprints)
+                if fp.dtype != np.uint8:
+                    # np.asarray(arr, np.uint8) would VALUE-truncate packed
+                    # uint32 words (every word mod 256) and write a silently
+                    # corrupt database; callers with packed words must pass
+                    # row-major bytes (e.g. arr.view/astype explicitly)
+                    raise TypeError(
+                        f"fingerprints must be raw uint8 bytes, got dtype "
+                        f"{fp.dtype}; reinterpret packed words with "
+                        ".view(np.uint8) (little-endian rows) instead"
+                    )
+            fp = np.ascontiguousarray(fp).reshape(-1, self._row_bytes)
+            n = fp.shape[0]
+            self._fp.write(fp.tobytes())
+        for field, strings in (("smiles", smiles), ("ids", ids)):
+            if field in self._strided:
+                n_field = self._write_strided(field, strings)
+            else:
+                strings = list(strings)
+                n_field = len(strings)
+                pos = self._tails[field]
+                spans = np.empty((n_field, 2), np.int64)
+                for i, s in enumerate(strings):
+                    spans[i] = (pos, pos + len(s))
+                    pos += len(s)
+                self._files[field].write(b"".join(strings))
+                self._offsets[field].write(spans.tobytes())
+                self._tails[field] = pos
+            if n is None:
+                n = n_field
+            elif n_field != n:
+                raise ValueError(
+                    f"batch mismatch: {n} rows but {n_field} {field} records"
+                )
         self.count += n
 
     def close(self) -> None:
         """Stamp headers, write meta, atomically rename into place."""
         try:
-            _write_npy_header(self._fp, (self.count, self._row_bytes), "|u1")
-            self._fp.close()
-            fp_meta = {"kind": "npy"}
+            if self._fp is not None:
+                _write_npy_header(self._fp, (self.count, self._row_bytes), "|u1")
+                self._fp.close()
+                fp_meta = {"kind": "npy"}
+            else:
+                fp_meta = {"kind": "synthetic", "seed": self._synthetic_seed}
             strings_meta = {}
             for field in ("smiles", "ids"):
                 self._files[field].close()
-                _write_npy_header(self._offsets[field], (self.count, 2), "<i8")
-                self._offsets[field].close()
-                strings_meta[field] = {"kind": "offsets"}
+                if field in self._strided:
+                    strings_meta[field] = {
+                        "kind": "strided", "itemsize": self._strided[field],
+                    }
+                else:
+                    _write_npy_header(self._offsets[field], (self.count, 2), "<i8")
+                    self._offsets[field].close()
+                    strings_meta[field] = {"kind": "offsets"}
             (self._tmp / "meta.json").write_text(
                 json.dumps(
                     {
@@ -383,7 +446,8 @@ class TfsimStreamWriter:
 
         for f in [self._fp, *self._files.values(), *self._offsets.values()]:
             try:
-                f.close()
+                if f is not None:
+                    f.close()
             except OSError:
                 pass
         shutil.rmtree(self._tmp, ignore_errors=True)
