@@ -6,7 +6,10 @@ Run from the repository root on a machine with a CUDA card, nvcc and no
 JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
 (a) build the three phase-1 kernels from ``gpusimilarity_tpu_torch/csrc``,
-    one nvcc per source, started together;
+    one nvcc per source, started together, and beside them the native host
+    runtime from ``native/`` (``utils/native.py``: built at first use where
+    no hand-built library loads, as in a ``git archive``), which must load;
+    it prints where the library came from;
 (b) hold the bitplane kernel against its plain PyTorch version, bit for
     bit, on a synthetic library of 113,335,291 rows x 1024 bits (the size
     of Enamine REAL in the reference's presentation) made on the card from
@@ -64,6 +67,14 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     exactly), a wrong key, a corrupt record that must drop the connection;
     the HTML UI, ``cli.search`` and the FDW; the socket round trip p50 and
     the page time.
+(w) after (h), a server's start-up up to its first answers: ``cli.server``
+    on (d)'s library, bitplane and ``--fold 4`` dense, each started with
+    ``--no_warmup`` and then with its default warm-up: seconds to ready and
+    of the warm-up, the first B=1 k=20 HTTP round trip, the median of the
+    next 20 and the first burst of 8 concurrent requests (and the median of
+    the next 5 bursts); every answer
+    exact by (d)'s rules, the warmed server's kernel launched before ready
+    and the other's not, SIGINT exiting 0.
 
 (s) the sharded paths, in three places: after (p), the 113,335,291-row
     bitplane library cut into 4 shards on the card, its answers (B 1 and 32,
@@ -96,17 +107,18 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     on 113,335,291 rows (cut from 1,024,000,000: it writes 45 bytes of
     string blobs a row, 4.8 GiB here), 12/12 exact, recall against its
     full-width oracle printed, the server's page-prewarm line seen; (u2)
-    ``chem_scale`` on 200,000 compounds (cut from 5,000,000: ``createdb``
-    runs the pure-Python SMILES path in a checkout without the native
-    library), 8/8 self-matches; (u3) ``probe_fold_batch`` and
+    ``chem_scale`` on 200,000 compounds (cut from 5,000,000 to keep the
+    smoke inside its time), 8/8 self-matches; (u3) ``probe_fold_batch`` and
     ``probe_wordsel`` and (u4) ``probe_phase1`` at their defaults (352Mi
     rows fold 4; 100,663,296 rows), every time at or above its bound;
     (u5) ``verify_exactdiv``, 0 mismatches.
 
 The main path of each kernel is driven with its launch counter reset just
 before and read just after: the bitplane kernel in (c), (d), (g), (h), (s),
-(t) and (u), the dense kernel in (e), (f), (s), (t) and (u) (the servers'
-counts come from ``/stats``; the two-process server's from process 0's;
+(w), (t) and (u), the dense kernel in (e), (f), (s), (w), (t) and (u) (the
+servers' counts come from ``/stats``, read after ``ready`` and after the
+checked requests, so their warm-up counts nowhere; the two-process server's
+from process 0's;
 (t)'s bench and (u)'s tools report their own run's counts),
 the matrix-product kernel in the probe of (m), which is the one entry point
 that runs it. (s) reads its counts around each sharded search and server
@@ -244,16 +256,25 @@ def perturb(q: np.ndarray, seed: int) -> np.ndarray:
 
 
 def phase_build():
-    from gpusimilarity_tpu_torch.utils import kernels
+    """(a) the three kernels, one nvcc each, and beside them the native host
+    runtime, which must load: built at first use from ``native/`` in a
+    checkout that has no hand-built library (a ``git archive`` has none)."""
+    from gpusimilarity_tpu_torch.utils import kernels, native
 
     t0 = time.monotonic()
+    host_runtime = threading.Thread(target=native.available)
+    host_runtime.start()
     builds = kernels.load_all()
     for name, build in builds.items():
         log(f"[a] built {build.path.name} in {build.seconds:.2f}s")
         for line in build.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[a] ptxas {name}: {line.strip()}")
-    log(f"[a] {len(builds)} kernels loaded in {time.monotonic() - t0:.2f}s")
+    host_runtime.join()
+    log(f"[a] native host runtime: {native.origin()}")
+    check(native.available(), f"[a] no native host runtime: {native.origin()}")
+    log(f"[a] {len(builds)} kernels and the host runtime loaded in "
+        f"{time.monotonic() - t0:.2f}s")
     return builds
 
 
@@ -831,10 +852,11 @@ def _check_folded(tag, name, got_scores, got_idx, want_count, approx, full,
 
 
 def _check_answer(tag, what, rows, pops, q, k, cut, sim, ab, got, idx, approx,
-                  fold=1, self_row=None):
+                  fold=1, self_row=None, quiet=False):
     """(d)'s rules for one answer from (d)'s library (``idx``: the row of
     each returned id): unfolded, the top-k scores and the count of the plain
-    full scan; folded, (e)'s rules (:func:`_check_folded`)."""
+    full scan; folded, (e)'s rules (:func:`_check_folded`). ``quiet`` logs
+    nothing when the answer is exact."""
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import (
         full_scan_topk,
@@ -864,6 +886,8 @@ def _check_answer(tag, what, rows, pops, q, k, cut, sim, ab, got, idx, approx,
         )
         _check_folded(tag, f"{what} {sim} k={k}", got, idx, int(c[0]), approx,
                       full, cut, self_row)
+    if quiet:
+        return
     log(f"[{tag}] {what} {sim} k={k} cut={cut}: {len(got)} results, "
         f"approximate_count {approx}, exact against "
         + ("the full scan" if fold == 1 else "full-width rescore and the "
@@ -1552,6 +1576,145 @@ def phase_two_process_server(device, path, tmp, server_args=()):
                 log(f"[s] process {pid}: fed {fed[0]:,} fp bytes (rows "
                     f"[{lo:,}, {hi:,})), exited 0")
     return p50, launches
+
+
+W_NEXT = 20  # (w): B=1 round trips after the first, for the median
+W_BURST = 8  # (w): concurrent requests of the first burst
+W_LATER = 5  # (w): bursts after the first, for the median (the batcher's
+# grouping of a burst varies from one to the next)
+W_SERVERS = (  # (w): (label, fold, kernel, server flags)
+    ("bitplane", 1, "bitplane_phase1", ()),
+    ("dense fold 4", 4, "dense_phase1", ("--fold", "4")),
+)
+
+
+def _timed_post(port, form):
+    t0 = time.perf_counter()
+    reply = _post(port, form)
+    return reply, t0, time.perf_counter()
+
+
+def _burst(port, forms):
+    """``forms`` sent together from one thread each, released at once:
+    ``(replies, wall ms until all are answered, the slowest request's ms)``."""
+    done = [None] * len(forms)
+    gate = threading.Barrier(len(forms) + 1)
+
+    def ask(j):
+        gate.wait()
+        done[j] = _timed_post(port, forms[j])
+
+    threads = [threading.Thread(target=ask, args=(j,)) for j in range(len(forms))]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=300)
+    check(all(d is not None for d in done), "[w] a burst request did not return")
+    return ([d[0] for d in done], (max(d[2] for d in done) - t0) * 1e3,
+            max((d[2] - d[1]) * 1e3 for d in done))
+
+
+def _first_requests(port, forms, kernel):
+    """The first request, ``W_NEXT`` more one at a time, then the burst of
+    ``W_BURST`` and ``W_LATER`` more of it for reference: the replies and
+    the times, with the kernel's launches (the batcher's groups) in the
+    first burst and the median over the later ones."""
+    replies, out = [], {}
+    reply, t0, t1 = _timed_post(port, forms[0])
+    replies.append(reply)
+    out["first_ms"] = (t1 - t0) * 1e3
+    next_ms = []
+    for form in forms[1:1 + W_NEXT]:
+        reply, t0, t1 = _timed_post(port, form)
+        replies.append(reply)
+        next_ms.append((t1 - t0) * 1e3)
+    out["next_p50_ms"] = statistics.median(next_ms)
+    out["next_max_ms"] = max(next_ms)
+    burst = forms[1 + W_NEXT:]
+    walls, slowest, groups = [], [], []
+    for _ in range(1 + W_LATER):
+        l0 = _get(port, "/stats")["kernel_launches"][kernel]
+        got, wall, slow = _burst(port, burst)
+        groups.append(_get(port, "/stats")["kernel_launches"][kernel] - l0)
+        walls.append(wall)
+        slowest.append(slow)
+        replies += got
+    out["burst_ms"], out["burst_slowest_ms"] = walls[0], slowest[0]
+    out["burst_launches"] = groups[0]
+    out["later_burst_p50_ms"] = statistics.median(walls[1:])
+    out["later_burst_launches_p50"] = statistics.median(groups[1:])
+    return replies, {key: round(v, 3) for key, v in out.items()}
+
+
+def phase_first_requests(device, path, server_args=()):
+    """(w) a server's start-up up to its first answers: ``cli.server`` on
+    (d)'s library, bitplane and ``--fold 4`` dense, each started with
+    ``--no_warmup`` and then with its default warm-up. Per server: the
+    seconds to ``ready``, the warm-up's own seconds (its ``warmed up``
+    line), the first B=1 k=20 HTTP round trip, the median of the next 20,
+    the first burst of 8 concurrent requests (wall ms until all are
+    answered, the slowest, and the batcher's groups as kernel launches),
+    then the median of 5 more such bursts. Every answer exact by (d)'s
+    rules; the warmed
+    server launched its kernel before ``ready`` and the other did not; each
+    exits 0 on SIGINT. Returns the records and each kernel's launches over
+    the requests (``/stats`` deltas)."""
+    rows, pops = server_rows(device, SERVER_ROWS)
+    rng = np.random.default_rng(SEED + 29)
+    picks = [int(i) for i in rng.choice(SERVER_ROWS, 1 + W_NEXT + W_BURST,
+                                        replace=False)]
+    forms = [{"fp_hex": rows[i].cpu().numpy().view(np.uint8).tobytes().hex(),
+              "return_count": 20, "similarity_cutoff": 0, "dbnames": "smoke",
+              "dbkeys": "smoke"} for i in picks]
+    records, launches = [], {"bitplane_phase1": 0, "dense_phase1": 0}
+    for label, fold, kernel, flags in W_SERVERS:
+        for warm in (False, True):
+            logs = []
+            t0 = time.monotonic()
+            args = [*flags, *server_args] + ([] if warm else ["--no_warmup"])
+            with serving([path], args, "w", logs=logs) as port:
+                ready_s = time.monotonic() - t0
+                at_ready = _get(port, "/stats")["kernel_launches"][kernel]
+                check((at_ready > 0) == warm,
+                      f"[w] {label}: {at_ready} {kernel} launches before ready "
+                      f"({'with' if warm else 'without'} warm-up)")
+                replies, times = _first_requests(port, forms, kernel)
+                stats = _get(port, "/stats")
+                launched = stats["kernel_launches"][kernel] - at_ready
+            rc, lines = logs[0]
+            check(rc == 0, f"[w] {label} server exited {rc} on SIGINT:\n"
+                  + "".join(lines[-20:]))
+            warmed = [float(m.group(1)) for m in map(
+                re.compile(r"warmed up smoke \(([0-9.]+)s\)").search, lines) if m]
+            check(len(warmed) == int(warm), f"[w] {label}: warm-up lines {warmed}")
+            check(len(replies) == len(picks) + W_LATER * W_BURST
+                  and launched > 0 and stats["searches"] == len(replies),
+                  f"[w] {label}: {launched} launches, {stats['searches']} searches")
+            for i, reply in zip(picks + picks[1 + W_NEXT:] * W_LATER, replies):
+                ids, smiles, got = zip(*reply["results"])
+                _check_answer("w", label, rows, pops, rows[i], 20, 0.0, "tanimoto",
+                              (1.0, 1.0), got, _smoke_rows("w", ids, smiles),
+                              reply["approximate_count"], fold, i, quiet=True)
+            launches[kernel] += launched
+            record = {
+                "server": label, "warmup": warm, "ready_s": round(ready_s, 3),
+                "warmup_s": warmed[0] if warmed else None, **times,
+                "launches_before_ready": at_ready, "launches": launched,
+            }
+            records.append(record)
+            log(f"[w] {label} {'with' if warm else 'without'} warm-up: ready in "
+                f"{ready_s:.2f}s" + (f" (warm-up {warmed[0]}s)" if warmed else "")
+                + f", first B=1 {times['first_ms']} ms, next {W_NEXT} p50 "
+                f"{times['next_p50_ms']} ms, first burst of {W_BURST} "
+                f"{times['burst_ms']} ms (slowest {times['burst_slowest_ms']}, "
+                f"{times['burst_launches']} launches), the next {W_LATER} p50 "
+                f"{times['later_burst_p50_ms']} ms ({times['later_burst_launches_p50']} "
+                f"launches); {len(replies)} answers exact; {kernel} {at_ready} launches "
+                f"before ready, {launched} for the requests")
+    log("[w] " + json.dumps({"first_requests": records, "card": gpu_line()}))
+    return records, launches
 
 
 def phase_dryrun(device):
@@ -2267,6 +2430,11 @@ def main() -> int:
     with phase("h"):
         built = phase_createdb(run_tmp.name)
         entry_points = phase_entrypoints(device, run_tmp.name, smoke_path, built)
+    torch.cuda.empty_cache()
+
+    with phase("w"):
+        first_requests, w_launches = phase_first_requests(device, smoke_path)
+        check(all(w_launches.values()), f"(w) launched no kernel: {w_launches}")
     run_tmp.cleanup()
     torch.cuda.empty_cache()
 
@@ -2301,9 +2469,11 @@ def main() -> int:
 
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}, entry points "
-        f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}; "
+        f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}, "
+        f"first requests {w_launches['bitplane_phase1']}; "
         f"dense engine {dense_engine_launches}, server {folded_server_launches}, "
-        f"sharded {s_launches['dense_phase1']}; matrix-product probe "
+        f"sharded {s_launches['dense_phase1']}, first requests "
+        f"{w_launches['dense_phase1']}; matrix-product probe "
         f"{probe_launches}; measurement entry points (t) bitplane "
         f"{t_launches['bitplane_phase1']}, dense {t_launches['dense_phase1']}; "
         f"last tools (u) bitplane {u_launches['bitplane_phase1']}, dense "
@@ -2312,7 +2482,8 @@ def main() -> int:
     wordsel = probes["probe_wordsel"][-1]
     log(f"last tools ({gpu_line()}): northstar {northstar['rows']:,} rows fold 4 "
         f"p50 {northstar['value']} ms, warm {northstar['warm_p50_ms']} ms, cold start "
-        f"{northstar['cold_start_s']} s, prewarm done {northstar['prewarm_done_s']} s "
+        f"{northstar['cold_start_s']} s (warm-up {northstar['warmup_s']} s), prewarm "
+        f"done {northstar['prewarm_done_s']} s "
         f"({northstar['prewarm']}), recall@{northstar['k']} "
         f"{northstar['recall_at_k']} (min {northstar['recall_at_k_min']}, >=0.5 "
         f"{northstar['recall_strong_ge_0.5']}); chem_scale {chem['rows']:,} compounds "
@@ -2343,6 +2514,12 @@ def main() -> int:
         + "; server B=1 round trip p50, 1 -> 2 processes: HTTP "
         f"{p50[1][0]:.3f} -> {p50[2][0]:.3f} ms, socket {p50[1][1]:.3f} -> "
         f"{p50[2][1]:.3f} ms")
+    log(f"first requests ({gpu_line()}), {SERVER_ROWS:,} rows: " + "; ".join(
+        f"{r['server']} {'warm-up ' + str(r['warmup_s']) + ' s' if r['warmup'] else 'no warm-up'}"
+        f": ready {r['ready_s']} s, first {r['first_ms']} ms, next {W_NEXT} p50 "
+        f"{r['next_p50_ms']} ms, burst of {W_BURST} {r['burst_ms']} ms (next "
+        f"{W_LATER} p50 {r['later_burst_p50_ms']})"
+        for r in first_requests))
     log(f"entry points ({gpu_line()}): createdb "
         f"{entry_points['createdb_rates'][0]:.0f} compounds/s to .fsim, "
         f"{entry_points['createdb_rates'][1]:.0f} to .tfsim; socket round trip "
@@ -2380,13 +2557,14 @@ def main() -> int:
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
                + entry_points["launches"] + s_launches["bitplane_phase1"]
-               + t_launches["bitplane_phase1"] + u_launches["bitplane_phase1"],
+               + w_launches["bitplane_phase1"] + t_launches["bitplane_phase1"]
+               + u_launches["bitplane_phase1"],
                max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
     k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches
-               + s_launches["dense_phase1"] + t_launches["dense_phase1"]
-               + u_launches["dense_phase1"],
+               + s_launches["dense_phase1"] + w_launches["dense_phase1"]
+               + t_launches["dense_phase1"] + u_launches["dense_phase1"],
                max(max_err2, fold_err), timing2)
     log(json.dumps({"kernels": [k1, k2, k3]}))
     log(gpu_line())

@@ -6,16 +6,33 @@
 
 The library shards over every visible CUDA card; without one the server
 raises, unless ``--cpu_only`` asks for the plain PyTorch path on the host.
-Both phase-1 kernels are built (or loaded from their cached builds) before
-the server prints ``ready``. A one-process server then warms the host's page
-cache for its memory-mapped rescore rows and string blobs in the background,
-as the JAX server does by default, and logs ``prewarmed N GiB of rescore
-pages in S s`` (or ``rescore prewarm skipped (...)`` / ``rescore prewarm not
-needed (...)``); a multi-process job warms before it serves. ``--fold``,
-``--gpu_bitcount``, ``--scan_mode`` and ``--popless`` choose the store as in
-the JAX server; a library too large for the cards is folded and served
-dense. ``--socket_name`` also serves the reference's binary protocol on
-``$TMPDIR/<name>``, ``--http_interface`` the debug HTML UI, and
+A server starts in this order:
+
+1. builds: the two phase-1 kernels it launches, each compiled by nvcc at
+   first use or loaded from its cached build (``utils/kernels.py``), and
+   beside them the native host runtime, compiled from ``native/`` at first
+   use the same way or loaded (``utils/native.py``; without a compiler it
+   logs one warning and the host work runs in numpy);
+2. each library is loaded and uploaded to the cards;
+3. warm-up (``--no_warmup`` skips it): every database runs the JAX server's
+   warm-up searches, its row 0 and a query per plane bucket that traffic is
+   likely to hit, at each k of ``--warmup_ks`` and each batch size 1, 2, 4,
+   ... up to ``--warmup_batch`` (at most ``--max_batch``), through the real
+   path, and logs ``warmed up <name> (<s>s)``. PyTorch compiles nothing per
+   shape, but a first search still pays for the first launch of each kernel
+   module, the caching allocator's growth at its shapes and the first pinned
+   copies; the warm-up pays them before the ready line;
+4. ``tpusimilarity ready on ...``. A one-process server then warms the
+   host's page cache for its memory-mapped rescore rows and string blobs in
+   the background, and logs ``prewarmed N GiB of rescore pages in S s`` (or
+   ``rescore prewarm skipped (...)`` / ``rescore prewarm not needed
+   (...)``); a multi-process job warms before it serves.
+
+SIGINT at any moment after the ready line closes the server and exits 0.
+``--fold``, ``--gpu_bitcount``, ``--scan_mode`` and ``--popless`` choose the
+store as in the JAX server; a library too large for the cards is folded and
+served dense. ``--socket_name`` also serves the reference's binary protocol
+on ``$TMPDIR/<name>``, ``--http_interface`` the debug HTML UI, and
 ``--search_timeout_s`` bounds each request's wait.
 
 Multi-process serving, one process per host (or several sharing a card)::
@@ -23,18 +40,18 @@ Multi-process serving, one process per host (or several sharing a card)::
     python -m gpusimilarity_tpu_torch.cli.server db.fsim --coordinator host:port \
         --num_processes 2 --process_id {0,1}
 
-Every process loads its span of the library onto its cards; process 0
-serves HTTP and the socket and fans each search out to the others
+Every process loads its span of the library onto its cards and runs the
+warm-up in lockstep with the others (its searches join collectives);
+process 0 serves HTTP and the socket and fans each search out to the others
 (``parallel/multihost.MultihostController``), which print ``worker <i>:
 <name> fed <n> fp bytes`` and ``tpusimilarity worker <i> ready`` and serve
 until process 0 shuts down.
 
-The JAX server's other flags have no counterpart here: ``--pallas`` (the
-CUDA kernels are the only device path), ``--no_warmup``,
-``--warmup_batch``, ``--warmup_ks`` and ``--jax_cache_dir`` (PyTorch
-compiles no program per shape, so there is nothing to warm or cache; the
-page prewarm above runs as under the JAX server's default) and
-``--jax_profiler_port`` (``torch.profiler`` traces in process).
+Three flags of the JAX server have no counterpart and are refused:
+``--pallas`` (the CUDA kernels are the only device path), ``--jax_cache_dir``
+(there is no XLA program to cache; the kernels' builds are cached under the
+build dir) and ``--jax_profiler_port`` (``torch.profiler`` traces in
+process).
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
+import threading
 
 from ..serve.batching import DEFAULT_RESULT_TIMEOUT_S
 
@@ -108,7 +126,29 @@ def parse_args(argv=None):
                         help="total processes in the multi-process job")
     parser.add_argument("--process_id", default=0, type=int,
                         help="this process's rank in the multi-process job")
+    parser.add_argument(
+        "--no_warmup", action="store_true",
+        help="skip the warm-up searches at start-up (the first live requests "
+        "then pay the first kernel launches and the allocator's growth)",
+    )
+    parser.add_argument(
+        "--warmup_batch", default=8, type=int,
+        help="also warm coalesced batches of 2, 4, ... up to this size (at "
+        "most --max_batch; the batching layer groups concurrent requests). "
+        "1 = single queries only",
+    )
+    parser.add_argument(
+        "--warmup_ks", default="20,128",
+        help="comma-separated return_count values the warm-up searches at "
+        "(each k picks its candidate fetch width, and with it the shapes of "
+        "the selection and the top-k)",
+    )
     return parser.parse_args(argv)
+
+
+def warmup_ks(args) -> tuple[int, ...]:
+    """The k values of ``--warmup_ks``, parsed as the JAX server does."""
+    return tuple(int(k) for k in str(args.warmup_ks).split(",") if k.strip())
 
 
 def main(argv=None):
@@ -124,17 +164,23 @@ def main(argv=None):
     if args.coordinator:
         multihost.initialize(args.coordinator, args.num_processes, args.process_id)
 
+    log = logging.getLogger("tpusimilarity")
     mesh = make_mesh(["cpu"] if args.cpu_only else None)
+    from ..utils import native
+
+    # the host runtime builds (or loads) beside the kernels' nvcc runs
+    host_runtime = threading.Thread(target=native.available, name="tpusim-native")
+    host_runtime.start()
     if not args.cpu_only:
         from ..utils import kernels
 
         # the kernels the searches launch; the probe's matrix-product
         # kernel serves no request
         for name, build in kernels.load_all(SERVING_KERNELS).items():
-            logging.getLogger("tpusimilarity").info(
-                "%s kernel ready (%s, built in %.1fs)", name, build.path.name,
-                build.seconds,
-            )
+            log.info("%s kernel ready (%s, built in %.1fs)", name,
+                     build.path.name, build.seconds)
+    host_runtime.join()
+    log.info("native host runtime: %s", native.origin())
 
     from ..models.registry import DatabaseRegistry
     from ..serve.server import SimilarityServer
@@ -151,6 +197,11 @@ def main(argv=None):
         controller = multihost.MultihostController(
             registry, max_batch=args.max_batch
         )
+    if not args.no_warmup:
+        # every process of a job, in lockstep, before it serves
+        registry.warmup(ks=warmup_ks(args),
+                        max_batch=min(args.warmup_batch, args.max_batch))
+    if controller is not None:
         for name in registry.names():
             print(f"worker {mesh.process_index}: {name} fed "
                   f"{registry.get(name).loaded_fp_bytes} fp bytes",
@@ -173,13 +224,15 @@ def main(argv=None):
         search_timeout_s=args.search_timeout_s,
     )
     devices = ", ".join(map(str, mesh.distinct_devices))
-    print(
-        f"tpusimilarity ready on {args.hostname}:{server.port} "
-        f"({', '.join(registry.names())}; {mesh.n_shards} shards, "
-        f"{mesh.n_processes} processes; {devices})",
-        file=sys.stderr, flush=True,
-    )
     try:
+        # inside the try: a SIGINT that lands in the ready line's write still
+        # closes the server and exits 0
+        print(
+            f"tpusimilarity ready on {args.hostname}:{server.port} "
+            f"({', '.join(registry.names())}; {mesh.n_shards} shards, "
+            f"{mesh.n_processes} processes; {devices})",
+            file=sys.stderr, flush=True,
+        )
         server.serve_forever()
     except KeyboardInterrupt:
         pass

@@ -10,11 +10,15 @@ tables held in RAM are cut to its span), ``search``, ``search_batch`` (a
 shard), ``_assemble`` with the exact full-width rescore of folded-scan
 candidates, the fetch-width rule ``_k_bucket``, and the host page-cache
 prewarm of memory-mapped rescore sources and string blobs after the upload
-(``upload(async_prewarm=...)``, :meth:`FingerprintDB.join_prewarm`).
+(``upload(async_prewarm=...)``, :meth:`FingerprintDB.join_prewarm`), and
+the start-up warm-up (:meth:`FingerprintDB.warmup`): the same searches the
+JAX engine runs before its server is ready, which here load each kernel
+module on its first launch and grow the caching allocator and the pinned
+host buffers to what a first request would otherwise pay for.
 
-Not ported, because PyTorch runs eagerly and has no compile latency to
-hide: ahead-of-time precompiles, serving-time k promotion, background
-compiles, warmup pins and batch-size buckets.
+Not ported, because PyTorch compiles no program per shape: ahead-of-time
+precompiles, serving-time k promotion, background compiles, warm-up pins
+and the padding of a batch to a bucket.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ops import fold as fold_ops
-from ..ops.bitplane import query_plane_indices
+from ..ops.bitplane import PLANE_BUCKETS, plane_bucket_for, query_plane_indices
 from ..ops.bitplane_phase1 import KERNEL_MAX_PLANES
 from ..ops.dense_phase1 import KERNEL_MAX_WORDS
 from ..ops.scan import TANIMOTO, popcount_rows_np, scores_np
@@ -42,6 +46,9 @@ from ..utils.strings import mmap_backing
 from .results import SearchResult
 
 log = logging.getLogger("tpusimilarity")
+# the batch sizes the warm-up searches at: the JAX engine's batch buckets
+# (the port pads no batch; these only pick the warm-up's shapes)
+_WARMUP_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 # the prewarm touches one byte a page, in slabs of this many bytes
 _PREWARM_SLAB_BYTES = 64 << 20
 _PAGE_BYTES = 4096
@@ -343,6 +350,82 @@ class FingerprintDB:
 
     def get_id(self, index: int) -> str:
         return self._ids[index].decode("utf-8", "replace")
+
+    # ---------------------------------------------------------------- warm-up
+
+    def _synthetic_query(self, n_set: int) -> np.ndarray:
+        """Full-width packed query with exactly ``n_set`` bits, all within
+        the first ``device_bitcount`` positions so word-level folding keeps
+        the count: the query lands in the plane bucket of ``n_set``."""
+        rng = np.random.default_rng(n_set)
+        n_set = max(1, min(n_set, self.device_bitcount))
+        bits = np.zeros(self.bitcount, np.uint8)
+        bits[rng.choice(self.device_bitcount, n_set, replace=False)] = 1
+        return np.packbits(bits, bitorder="little").view(np.uint32)
+
+    def _warmup_queries(self) -> list[np.ndarray]:
+        """The JAX engine's warm-up queries: library row 0 (a 48-bit
+        synthetic query without host rows), and for a bitplane store one
+        query per plane bucket that live traffic is likely to hit: the
+        buckets of the p50 and p95 of the folded row popcounts of a sample
+        of up to 4096 rows, and one bucket of headroom above."""
+        if self._full_words is not None:
+            base = np.array(self._full_words[0])
+        else:
+            base = self._synthetic_query(min(48, self.device_bitcount))
+        if self.scan_mode != "bitplane":
+            return [base]  # the dense scan's work does not depend on the query
+
+        sample_n = min(self.count, 4096)
+        if self._full_words is not None:
+            stride = max(1, self.count // sample_n)
+            rows = np.asarray(self._full_words[::stride][:sample_n])
+            pops = popcount_rows_np(fold_ops.fold_words(rows, self.fold_factor))
+        else:
+            pops = np.asarray([48])
+        w = self.device_bitcount
+        targets = {
+            plane_bucket_for(int(np.percentile(pops, 50)), w),
+            plane_bucket_for(int(np.percentile(pops, 95)), w),
+        }
+        # one bucket of headroom above the densest observed
+        nxt = next((p for p in PLANE_BUCKETS if p > max(targets)), None)
+        if nxt is not None and nxt <= w:
+            targets.add(nxt)
+        base_bucket = plane_bucket_for(
+            int(popcount_rows_np(
+                fold_ops.fold_words(base[None, :], self.fold_factor)
+            )[0]), w,
+        )
+        queries = [base]
+        for bucket in sorted(targets - {base_bucket}):
+            queries.append(self._synthetic_query(bucket))
+        return queries
+
+    def warmup(self, ks: Sequence[int] = (20, 128), max_batch: int = 1) -> None:
+        """Search each of :meth:`_warmup_queries` at every batch size of
+        ``(1, 2, 4, 8, ...)`` up to ``max_batch`` and every k of ``ks``,
+        through the real path, so the server's first requests do not pay
+        for first use: the first launch of each kernel module (CUDA loads
+        modules lazily), the caching allocator's growth for the scan's
+        outputs, phase 2's chunks and the top-k buffers at each (B, plane
+        bucket, k_fetch), and the first pinned host copies. In a
+        multi-process job every process must call this in lockstep: the
+        searches join collectives, so process 0's query list is shared and
+        every process runs the same searches in the same order."""
+        if self.count == 0:
+            return
+        queries = self._warmup_queries()
+        if self.mesh.n_processes > 1:
+            queries = multihost.all_gather_object(queries)[0]
+        batches = [b for b in _WARMUP_BATCHES if b == 1 or b <= max_batch]
+        for query in queries:
+            for b in batches:
+                for k in ks:
+                    self.search_batch(
+                        np.tile(query, (b, 1)), k=min(int(k), self.count),
+                        dbkey=self.dbkey,
+                    )
 
     # ---------------------------------------------------------------- search
 

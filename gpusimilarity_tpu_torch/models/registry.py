@@ -196,6 +196,16 @@ class DatabaseRegistry:
     def __contains__(self, name: str) -> bool:
         return name in self._dbs
 
+    def warmup(self, ks: Sequence[int] = (20, 128), max_batch: int = 1) -> None:
+        """Warm each database's common search shapes
+        (:meth:`FingerprintDB.warmup`), in name order; called at server
+        start unless disabled, on every process of a multi-process job. The
+        warm-up's searches are not counted in :meth:`stats`."""
+        for name in self.names():
+            t0 = time.monotonic()
+            self._dbs[name].warmup(ks=ks, max_batch=max_batch)
+            log.info("warmed up %s (%.2fs)", name, time.monotonic() - t0)
+
     def stats(self) -> dict:
         from ..ops import bitplane_phase1, dense_phase1
 

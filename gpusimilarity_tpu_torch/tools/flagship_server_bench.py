@@ -7,7 +7,8 @@ of the repository's ``tools/flagship_server_bench.py``)::
 The reference's headline configurations are 510M rows at fold 8 on 2x
 1080Ti (481.8 ms) and 1.02B rows at fold 4 on 4x V100 (451.7 ms)
 (presentation slides 12-13). This tool serves ``--lib`` with ``python -m
-gpusimilarity_tpu_torch.cli.server --fold F`` (the folded dense scan with the
+gpusimilarity_tpu_torch.cli.server --fold F --warmup_ks K --warmup_batch 1``
+(the JAX tool's warm-up flags; the folded dense scan with the
 k*fold*log2(2*fold) over-fetch and the exact full-width rescore from the
 memory map) and queries it over HTTP. ``--lib`` is a ``.tfsim`` whose ids
 are ``SYN`` and the row number (``tools/fold_scale --generate_only
@@ -57,7 +58,9 @@ def main(argv=None) -> int:
     dbname = Path(args.lib).name
     for suffix in (".tfsim", ".fsim"):
         dbname = dbname.removesuffix(suffix)
-    server_args = ["--fold", str(args.fold)] + (["--cpu_only"] if args.cpu_only else [])
+    # the JAX tool's warm-up: its one benched k, single queries
+    server_args = ["--fold", str(args.fold), "--warmup_ks", str(args.k),
+                   "--warmup_batch", "1"] + (["--cpu_only"] if args.cpu_only else [])
     rng = np.random.default_rng(123)
     q_rows = rng.choice(n, size=args.queries, replace=False)
 

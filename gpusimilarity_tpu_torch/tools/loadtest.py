@@ -14,14 +14,14 @@ score 1.0. The server is stopped however the run ends.
 Presets, each the constants of one root script:
 
 * ``loadtest`` (default): 1,000,000 rows at 5% bit density (numpy seed 5)
-  written as a ``.fsim``, ``--max_batch 8 --batch_window_ms 5``, warm-up at
-  1-8 concurrent requests, 32 clients.
+  written as a ``.fsim``, ``--max_batch 8 --batch_window_ms 5`` (the
+  server's default warm-up), warm-up at 1-8 concurrent requests, 32
+  clients.
 * ``loadtest104``: a ``tools/fold_scale`` library of 104,000,000 rows at
   ``--and_slabs 4`` (Morgan-like 6.25% density; written under ``--dir``,
   default ``$TMPDIR/tpusim_load104``, and reused), ``--max_batch 64
-  --batch_window_ms 5``, warm-up at 1-32, 32 clients. The root script's
-  ``--warmup_ks``/``--warmup_batch`` have no twin: nothing compiles per
-  shape here.
+  --batch_window_ms 5 --warmup_ks 128 --warmup_batch 32``, warm-up at 1-32,
+  32 clients.
 
 The server runs on the card (``--cpu_only``: the plain versions on the
 host). Prints one JSON line: requests and failures, each pass's qps and
@@ -52,7 +52,8 @@ import numpy as np
 PRESETS = {
     "loadtest": {"rows": 1_000_000, "max_batch": 8, "warmup": (1, 2, 4, 8)},
     "loadtest104": {"rows": 104_000_000, "max_batch": 64,
-                    "warmup": (1, 2, 4, 8, 16, 32)},
+                    "warmup": (1, 2, 4, 8, 16, 32),
+                    "server_args": ("--warmup_ks", "128", "--warmup_batch", "32")},
 }
 PASS_REQUESTS = 256
 READY_MARKER = "tpusimilarity ready on"
@@ -185,7 +186,8 @@ def main(argv=None) -> int:
             dbname, extra, digits = lib.name[: -len(".tfsim")], {"dbkeys": "scale"}, 10
         print(f"library ready: {lib} ({rows:,} rows)", file=sys.stderr, flush=True)
 
-        server_args = ["--max_batch", str(preset["max_batch"]), "--batch_window_ms", "5"]
+        server_args = ["--max_batch", str(preset["max_batch"]), "--batch_window_ms", "5",
+                       *preset.get("server_args", ())]
         if args.cpu_only:
             server_args.append("--cpu_only")
         failures = []

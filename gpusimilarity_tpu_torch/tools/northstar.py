@@ -19,18 +19,20 @@ the port's real serving stack on one card:
   starts (``synth.virtual_full_topk`` on the card, cutoffs 0.3 and 0.5; the
   card's cache is emptied after it) and caches it beside the library;
 * serves the library with ``python -m gpusimilarity_tpu_torch.cli.server
-  LIB --fold F --popless --scan_mode dense`` (fold 8 popless is 15.26 GiB of
-  device words at the default size), waits for its ``ready on`` line, then
-  for its page-prewarm line;
+  LIB --fold F --popless --scan_mode dense --warmup_ks K --warmup_batch 1``
+  (fold 8 popless is 15.26 GiB of device words at the default size; the
+  JAX tool's warm-up flags), waits for its ``ready on`` line, then for its
+  page-prewarm line;
 * reports the p50 and warm p50 latency of HTTP searches, cold start,
   prewarm time, the exactness checks (each query's own row first at 1.0,
   every returned score equal to the full-width rescore of its row, scores
   descending) and the recall of the true top k against the oracle.
 
 Each query is a library row (numpy seed 123). The JAX tool's
-``--warmup_ks``, ``--warmup_batch`` and ``--jax_cache_dir`` have no
-counterpart in the port's server and are left out; ``compile_plus_first_s``
-times the first request. The library goes under ``--dir`` (default
+``--jax_cache_dir`` has no counterpart in the port's server and is left
+out. ``cold_start_s`` includes the warm-up, whose seconds (the server's
+``warmed up`` line) are ``warmup_s``; ``compile_plus_first_s`` times the
+first request after it. The library goes under ``--dir`` (default
 ``$TMPDIR/tpusim_northstar``). Runs on the card; ``--cpu`` serves with
 ``--cpu_only`` and computes the oracle on the host. Prints one JSON line,
 the JAX tool's record plus ``card``, ``kernel_launches`` (``/stats`` deltas
@@ -45,6 +47,7 @@ import collections
 import concurrent.futures as cf
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -216,6 +219,7 @@ def main(argv=None) -> int:
         sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server", str(lib),
         "--port", str(port), "--fold", str(args.fold),
         "--popless", "--scan_mode", "dense",
+        "--warmup_ks", str(args.k), "--warmup_batch", "1",
     ]
     if args.cpu:
         server_cmd.append("--cpu_only")
@@ -255,6 +259,8 @@ def _measure(args, proc, port, log_path, t_start, dbname, data, full, q_rows,
              queries, oracle, build_s) -> int:
     _wait_for(proc, log_path, (READY_MARKER,), 3600)
     load_s = time.monotonic() - t_start
+    warmup = re.search(r"warmed up \S+ \(([0-9.]+)s\)",
+                       log_path.read_text(errors="replace"))
     stats0 = get_json(port, "/stats")
 
     def query(fp_hex, timeout=3600):
@@ -333,6 +339,7 @@ def _measure(args, proc, port, log_path, t_start, dbname, data, full, q_rows,
         "server_load_s": round(load_s, 1),
         "compile_plus_first_s": round(compile_s, 1),
         "cold_start_s": round(load_s + compile_s, 1),
+        "warmup_s": float(warmup.group(1)) if warmup else None,
         "prewarm_done_s": round(prewarm_s, 1),
         "library_build_s": round(build_s, 1),
         "path": "cli.server + HTTP",

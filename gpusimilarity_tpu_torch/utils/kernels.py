@@ -133,22 +133,28 @@ def load_all(names=KERNELS) -> dict[str, Build]:
         return dict(zip(names, pool.map(load, names)))
 
 
+def build(name: str) -> tuple[Path, float, str]:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source (and
+    the headers it includes) exists: ``(path, seconds, nvcc's output)``,
+    ``(path, 0.0, "")`` for the cached build. Needs nvcc, not a card: an
+    image build runs it to ship the kernels compiled."""
+    src = CSRC / f"{name}.cu"
+    out = build_dir() / f"{name}-{source_digest(src)}.so"
+    if out.exists():
+        return out, 0.0, ""
+    return (out, *_compile(src, out))
+
+
 def load(name: str) -> Build:
-    """Build ``csrc/<name>.cu`` if no build of this exact source (and the
-    headers it includes) exists, then
-    load it. Thread-safe, one lock per kernel; later calls return the
-    loaded library."""
+    """:func:`build` ``csrc/<name>.cu``, then load it. Thread-safe, one lock
+    per kernel; later calls return the loaded library."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with lock:
-        build = _LOADED.get(name)
-        if build is not None:
-            return build
-        src = CSRC / f"{name}.cu"
-        out = build_dir() / f"{name}-{source_digest(src)}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
-            seconds, log = _compile(src, out)
-        build = Build(ctypes.CDLL(str(out)), out, seconds, log)
-        _LOADED[name] = build
-        return build
+        loaded = _LOADED.get(name)
+        if loaded is not None:
+            return loaded
+        out, seconds, log = build(name)
+        loaded = Build(ctypes.CDLL(str(out)), out, seconds, log)
+        _LOADED[name] = loaded
+        return loaded

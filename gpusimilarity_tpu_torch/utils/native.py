@@ -3,22 +3,67 @@ the repository's C++ library): the port's copy of
 ``gpusimilarity_tpu/utils/native.py``, cut to the functions the port calls.
 
 Every entry point has a pure-numpy fallback; the native library is an
-accelerator, not a requirement. ``available()`` reports whether it loaded.
-Build with ``make -C native``; the loader also honors ``TPUSIM_NATIVE_LIB``.
+accelerator, not a requirement. ``available()`` reports whether it loaded
+and :func:`origin` where it came from. The loader tries, in order:
+
+1. ``TPUSIM_NATIVE_LIB``;
+2. ``native/libtpusim_native.so`` of the checkout, built by hand with
+   ``make -C native`` (then a copy installed beside this file);
+3. a build at first use: when none of those loads and the checkout holds
+   ``native/tpusim_native.cpp`` and ``native/tsn_chem.cpp``, both are
+   compiled with ``native/Makefile``'s flags by ``$CXX`` (else ``g++``) into
+   ``<build dir>/tpusim_native-<hash>.so``, the build dir of the CUDA
+   kernels (:func:`~.kernels.build_dir`). The hash covers the two sources,
+   the flags and the host CPU (:func:`cpu_key`): ``-march=native`` code
+   copied to another machine could fault on an instruction its CPU lacks,
+   so there it rebuilds. A file lock lets concurrent processes build once;
+   later processes load the cached file.
+
+``TPUSIM_NO_NATIVE`` disables the library. Without a compiler or the
+sources (an installed package), or when the build fails, every entry point
+falls back to numpy, and the process logs one warning that says why (a
+failed build's warning carries the compiler's output). ``native/`` is only
+read.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
+import logging
 import os
+import platform
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
 
+from .kernels import build_dir
+
+log = logging.getLogger("tpusimilarity")
+
+NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+SOURCES = ("tpusim_native.cpp", "tsn_chem.cpp")
+# native/Makefile's CXXFLAGS and LDFLAGS
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-Werror")
+LDFLAGS = ("-shared", "-lz", "-lpthread")
+ABI_VERSION = 3  # tsn_version() of the bindings below
+
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_ORIGIN = "not loaded yet"
+_LOAD_LOCK = threading.Lock()
 
 _c_u8pp = ctypes.POINTER(ctypes.c_char_p)
+
+
+class NativeUnavailable(RuntimeError):
+    """No library could be built here; the message says why."""
 
 
 def _candidate_paths():
@@ -31,27 +76,125 @@ def _candidate_paths():
     yield os.path.join(here, "libtpusim_native.so")
 
 
+def cpu_key() -> str:
+    """What ``-march=native`` compiles for: the machine type and the first
+    processor's model and feature flags from ``/proc/cpuinfo``."""
+    parts = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # the end of the first processor's block
+                key = line.split(":", 1)[0].strip()
+                if key in ("vendor_id", "model name", "flags", "Features",
+                           "CPU implementer", "CPU part"):
+                    parts.append(line.strip())
+    except OSError:
+        pass
+    return "\n".join(parts)
+
+
+def build_name() -> str:
+    """``tpusim_native-<16 hex digits>.so``: the hash of the sources' names
+    and bytes, the flags and :func:`cpu_key`."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode() + b"\0" + (NATIVE_DIR / name).read_bytes() + b"\0")
+    h.update(" ".join((*CXXFLAGS, "|", *LDFLAGS)).encode() + b"\0")
+    h.update(cpu_key().encode())
+    return f"tpusim_native-{h.hexdigest()[:16]}.so"
+
+
+def build(out_dir: Path | None = None) -> tuple[Path, float]:
+    """The host runtime compiled from ``native/`` into ``out_dir`` (default
+    :func:`~.kernels.build_dir`): ``(path, compile seconds)``, 0.0 when the
+    cached file was there. Holds ``<name>.lock`` while it builds, so one of
+    several concurrent callers compiles and the rest load its file; the
+    compiler writes a temporary file that replaces the target atomically.
+    Raises :class:`NativeUnavailable` without the sources or a compiler, or
+    when the compile fails (with the compiler's output)."""
+    if not all((NATIVE_DIR / name).is_file() for name in SOURCES):
+        raise NativeUnavailable(f"no C++ sources at {NATIVE_DIR} to build")
+    out_dir = Path(out_dir) if out_dir is not None else build_dir()
+    out = out_dir / build_name()
+    if out.exists():
+        return out, 0.0
+    cxx = os.environ.get("CXX") or "g++"
+    if shutil.which(cxx) is None:
+        raise NativeUnavailable(f"no C++ compiler to build it ({cxx!r} not found)")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(out.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():  # another process built it while this one waited
+            return out, 0.0
+        tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{threading.get_ident()}")
+        cmd = [cxx, *CXXFLAGS, "-o", str(tmp),
+               *(str(NATIVE_DIR / name) for name in SOURCES), *LDFLAGS]
+        t0 = time.monotonic()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:
+            raise NativeUnavailable(f"{cxx} could not run: {e}") from e
+        seconds = time.monotonic() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise NativeUnavailable(
+                f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                + (proc.stdout + proc.stderr).strip()
+            )
+        os.replace(tmp, out)  # atomic: no process loads half a file
+    return out, seconds
+
+
+def open_library(path) -> ctypes.CDLL:
+    """Load ``path`` and declare its functions; raises ``OSError`` when it
+    does not load and ``ValueError`` when its ABI is not this module's."""
+    lib = ctypes.CDLL(str(path))
+    lib.tsn_version.restype = ctypes.c_int
+    if lib.tsn_version() != ABI_VERSION:
+        raise ValueError(f"{path}: tsn_version {lib.tsn_version()} != {ABI_VERSION}")
+    _configure(lib)
+    return lib
+
+
 def _load() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _ORIGIN
     if _TRIED:
         return _LIB
-    _TRIED = True
-    if os.environ.get("TPUSIM_NO_NATIVE"):
-        return None
+    with _LOAD_LOCK:
+        if _TRIED:
+            return _LIB
+        if os.environ.get("TPUSIM_NO_NATIVE"):
+            _ORIGIN = "disabled by TPUSIM_NO_NATIVE"
+        else:
+            _LIB, _ORIGIN = _find_or_build()
+        _TRIED = True
+    return _LIB
+
+
+def _find_or_build() -> tuple[Optional[ctypes.CDLL], str]:
     for path in _candidate_paths():
         if not os.path.exists(path):
             continue
         try:
-            lib = ctypes.CDLL(path)
-            lib.tsn_version.restype = ctypes.c_int
-            if lib.tsn_version() != 3:
-                continue
-            _configure(lib)
-            _LIB = lib
-            break
-        except OSError:
+            return open_library(path), str(path)
+        except (OSError, ValueError):
             continue
-    return _LIB
+    try:
+        path, seconds = build()
+        lib = open_library(path)
+    except (NativeUnavailable, OSError, ValueError) as e:
+        log.warning("native host runtime unavailable, numpy fallback: %s", e)
+        return None, f"numpy fallback ({e})"
+    how = f"built in {seconds:.1f}s" if seconds else "cached build"
+    return lib, f"{path} ({how})"
+
+
+def origin() -> str:
+    """Where the loaded library came from (a path, and for a build at first
+    use whether it was compiled now or cached), or why none loaded."""
+    _load()
+    return _ORIGIN
 
 
 def _configure(lib: ctypes.CDLL) -> None:

@@ -220,6 +220,99 @@ def test_strings_are_host_sharded_only_when_held_in_ram(tmp_path, fsim_path):
     assert not multihost.needs_host_sharding(ConstantStringTable(b"C", 10))
 
 
+WARMUP_WORKER = r"""
+import json, sys
+pid, port, path = sys.argv[1:4]
+pid = int(pid)
+import numpy as np
+from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
+from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
+from gpusimilarity_tpu_torch.parallel import multihost
+from gpusimilarity_tpu_torch.parallel.mesh import make_mesh
+from gpusimilarity_tpu_torch.utils.tfsim import load_any
+
+multihost.initialize(f"127.0.0.1:{port}", 2, pid)
+mesh = make_mesh(["cpu"] * 2)
+data = load_any(path)
+reg = DatabaseRegistry(mesh=mesh)
+db = reg.add("wu", data, scan_mode="bitplane")
+own = FingerprintDB._warmup_queries
+if pid == 1:
+    # process 1 samples only its own span, whose rows are denser: its own
+    # list differs from process 0's, which the warm-up must share
+    lo = db.store.row0s[0]
+    def own(self):
+        full, count = self._full_words, self._count
+        self._full_words, self._count = full[lo:], count - lo
+        try:
+            return FingerprintDB._warmup_queries(self)
+        finally:
+            self._full_words, self._count = full, count
+local = [q.tolist() for q in own(db)]
+db._warmup_queries = lambda: own(db)
+ran = []
+search = db.search_batch
+def record(queries, k=20, *a, **kw):
+    ran.append([np.asarray(queries).tolist(), int(k)])
+    return search(queries, k, *a, **kw)
+db.search_batch = record
+reg.warmup(ks=(20, 128), max_batch=4)
+db.search_batch = search
+words = data.packed_words()
+rows = json.loads(sys.argv[4])
+res = db.search_batch(words[rows], [5, 20, 128], [0.0, 0.1, 0.0], data.dbkey,
+                      return_indices=True)
+print("RESULT " + json.dumps({
+    "local": local, "ran": ran, "searches": reg.stats()["searches"],
+    "results": [[r.scores, r.indices, r.approximate_count] for r in res],
+}), flush=True)
+multihost.finalize()
+"""
+
+
+def test_two_processes_warm_up_in_lockstep(tmp_path):
+    """A library whose halves differ in density: each process's own sample
+    of its span would pick other plane buckets, so a warm-up that let each
+    process choose its queries would run different searches in the
+    collectives. Both processes run process 0's searches, in one order, and
+    then answer as one process does."""
+    from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
+
+    n = 6000
+    rng = np.random.default_rng(21)
+    density = np.where(np.arange(n) < n // 2, 0.04, 0.2)[:, None]
+    data = FingerprintData(
+        dbkey="wu", bitcount=1024,
+        fingerprints=np.packbits(rng.random((n, 1024)) < density, axis=1,
+                                 bitorder="little"),
+        smiles=[f"S{i}".encode() for i in range(n)],
+        ids=[f"I{i}".encode() for i in range(n)])
+    path = tmp_path / "wu.fsim"
+    write_fsim(path, data)
+    script = tmp_path / "warmup_worker.py"
+    script.write_text(WARMUP_WORKER)
+    port = _free_port()
+    rows = [5, 3100, n - 1]
+    outs = _run_pair(lambda pid: [sys.executable, str(script), str(pid), str(port),
+                                  str(path), json.dumps(rows)])
+    got = [_result(o) for o in outs]
+    assert got[0]["local"] != got[1]["local"]  # the halves pick other buckets
+    assert got[0]["ran"] == got[1]["ran"]  # the same searches, in one order
+    n_queries = len(got[0]["local"])
+    assert n_queries >= 2
+    assert len(got[0]["ran"]) == n_queries * 3 * 2  # batches 1, 2, 4; k 20, 128
+    assert [q[0] for q, _ in got[0]["ran"][::6]] == got[0]["local"]
+    assert got[0]["searches"] == got[1]["searches"] == 0
+    want = FingerprintDB(data, device="cpu", scan_mode="bitplane").search_batch(
+        data.packed_words()[rows], [5, 20, 128], [0.0, 0.1, 0.0], "wu",
+        return_indices=True)
+    for g in got:
+        assert g["results"] == got[0]["results"]
+        for (scores, idx, approx), w, row in zip(g["results"], want, rows):
+            assert scores == w.scores and approx == w.approximate_count
+            assert idx[0] == row and scores[0] == 1.0
+
+
 # ------------------------------------------------------------- server stack
 
 
