@@ -75,6 +75,23 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     the next 5 bursts); every answer
     exact by (d)'s rules, the warmed server's kernel launched before ready
     and the other's not, SIGINT exiting 0.
+(x) after (w), the live profiling hook and the overlapped start-up:
+    ``cli.server --no_warmup --profiler_port`` on (d)'s library, fold 4
+    dense started from a fresh copy of the package (no build directory:
+    its kernels build while the library loads, and the load's log line
+    must come before ``dense_phase1 kernel ready``; build, load and ready
+    seconds printed) and bitplane from the checkout: a 3,000 ms capture
+    opened after ``ready`` holds the first B=1 k=20 request, 20 more and a
+    burst of 8, every answer exact by (d)'s rules; the trace must hold one
+    ``tpusim.search.smoke`` span per batch ``/stats`` counted, none on the
+    listener's thread, and one ``dense_phase1_mma_kernel`` or
+    ``bitplane_phase1_kernel`` event per launch; a second capture gets
+    409; the first request's span and the median of the next 20 split into
+    wall, device busy, top 5 host ops by self time and top 5 device ops. A
+    SIGINT cutting a capture exits 0 and leaves the trace; a server without
+    the flag listens on one port; ``tools.loadtest --profile_ms 2000`` (32
+    clients) gives the device's busy share, the search spans' p50 and the
+    share of request time outside any search span.
 
 (s) the sharded paths, in three places: after (p), the 113,335,291-row
     bitplane library cut into 4 shards on the card, its answers (B 1 and 32,
@@ -115,11 +132,13 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
 The main path of each kernel is driven with its launch counter reset just
 before and read just after: the bitplane kernel in (c), (d), (g), (h), (s),
-(w), (t) and (u), the dense kernel in (e), (f), (s), (w), (t) and (u) (the
-servers' counts come from ``/stats``, read after ``ready`` and after the
-checked requests, so their warm-up counts nowhere; the two-process server's
-from process 0's;
-(t)'s bench and (u)'s tools report their own run's counts),
+(w), (x), (t) and (u), the dense kernel in (e), (f), (s), (w), (x), (t) and
+(u) (the servers' counts come from ``/stats``, read after ``ready`` and after
+the checked requests, so their warm-up counts nowhere; the two-process
+server's from process 0's; (x)'s over each capture's window, where the trace
+must show the same number of kernel events;
+(t)'s bench and (u)'s tools, and (x)'s load test, report their own run's
+counts),
 the matrix-product kernel in the probe of (m), which is the one entry point
 that runs it. (s) reads its counts around each sharded search and server
 it checks. Launches made in (b), (b2), (p), (p2) and (m) before the probe,
@@ -148,6 +167,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.parse
 import urllib.request
 from pathlib import Path
@@ -155,6 +175,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gpusimilarity_tpu_torch.serve import profiler
 from gpusimilarity_tpu_torch.tools.probe_mxu import time_ms as median_ms
 from gpusimilarity_tpu_torch.tools.probe_mxu import timed
 
@@ -736,25 +757,28 @@ def write_server_library(device, n_rows, tmp) -> Path:
     return path
 
 
-def _port_env() -> dict:
+def _port_env(root=ROOT) -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(ROOT), env.get("PYTHONPATH", "")) if p
+        p for p in (str(root), env.get("PYTHONPATH", "")) if p
     )
     return env
 
 
 @contextlib.contextmanager
-def serving(paths, server_args, tag, socket_dir=None, processes=1, logs=None):
+def serving(paths, server_args, tag, socket_dir=None, processes=1, logs=None,
+            root=ROOT, started=None):
     """Run ``python -m gpusimilarity_tpu_torch.cli.server`` on ``paths`` and
     yield its HTTP port once it prints ``ready``; stop it on exit. Its
     ``--socket_name`` socket goes in ``socket_dir`` (its ``TMPDIR``). With
     ``processes`` > 1 it runs a multi-process job on this machine
     (``--coordinator``), waits for every worker's ``ready`` too, and SIGINT
     to process 0 shuts the job down; ``logs`` then gets each process's exit
-    code and stderr lines."""
+    code and stderr lines. The package comes from ``root``; ``started`` gets
+    each process and its stderr lines (a list that grows) once all are
+    ready."""
     port = _free_port()
-    env = _port_env()
+    env = _port_env(root)
     if socket_dir is not None:
         env["TMPDIR"] = str(socket_dir)
     job = []
@@ -768,7 +792,7 @@ def serving(paths, server_args, tag, socket_dir=None, processes=1, logs=None):
             [sys.executable, "-m", "gpusimilarity_tpu_torch.cli.server",
              *map(str, paths), "--port", str(port), *server_args, *job,
              *(["--process_id", str(pid)] if job else [])],
-            cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True,
+            cwd=root, env=env, stderr=subprocess.PIPE, text=True,
         )
         procs.append(proc)
         lines.append([])
@@ -790,6 +814,8 @@ def serving(paths, server_args, tag, socket_dir=None, processes=1, logs=None):
             check(time.monotonic() - t0 < 600, "server not ready in 600 s")
         log(f"[{tag}] server ready in {time.monotonic() - t0:.2f}s"
             + (f" ({processes} processes)" if processes > 1 else ""))
+        if started is not None:
+            started.extend(zip(procs, lines))
         yield port
     finally:
         procs[0].send_signal(signal.SIGINT)
@@ -1717,6 +1743,312 @@ def phase_first_requests(device, path, server_args=()):
     return records, launches
 
 
+X_FIRST_MS = 3000  # (x): the capture around a server's first requests
+X_LOAD_MS = 2000  # (x): the capture under the load test's 32 clients
+X_SERVERS = (  # (x): (label, fold, kernel, its name in the trace, flags, from
+    # a fresh copy of the package with no build directory)
+    ("fold 4 dense", 4, "dense_phase1", "dense_phase1_mma_kernel", ("--fold", "4"),
+     True),
+    ("bitplane", 1, "bitplane_phase1", "bitplane_phase1_kernel", (), False),
+)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_events(path):
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def _merged(intervals):
+    """Sorted, disjoint ``(start, end)`` intervals covering ``intervals``."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _covered(merged, lo, hi):
+    """How much of ``[lo, hi]`` the merged intervals cover."""
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in merged)
+
+
+def _self_times(events):
+    """Each event's duration less its direct children's (events of one
+    thread, nested by time)."""
+    out, stack = collections.Counter(), []
+    for e in sorted(events, key=lambda e: (e["ts"], -e["dur"])):
+        while stack and stack[-1]["ts"] + stack[-1]["dur"] <= e["ts"]:
+            stack.pop()
+        if stack:
+            out[stack[-1]["name"]] -= e["dur"]
+        out[e["name"]] += e["dur"]
+        stack.append(e)
+    return out
+
+
+def _short(name, width=60):
+    return name if len(name) <= width else name[:width - 3] + "..."
+
+
+def span_split(events, span):
+    """One search span of a trace: its wall ms, the device's busy ms inside
+    it, the top 5 host ops of its thread by self ms and the top 5 device ops
+    by ms inside it."""
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    device = [e for e in events if e.get("cat") in DEVICE_CATS
+              and e["ts"] < hi and e["ts"] + e["dur"] > lo]
+    host = [e for e in events if e.get("ph") == "X" and e.get("pid") == span["pid"]
+            and e.get("tid") == span["tid"] and e.get("cat") not in DEVICE_CATS
+            and lo <= e["ts"] and e["ts"] + e["dur"] <= hi]
+    by_device = collections.Counter()
+    for e in device:
+        by_device[e["name"]] += min(e["ts"] + e["dur"], hi) - max(e["ts"], lo)
+    busy = _covered(_merged((e["ts"], e["ts"] + e["dur"]) for e in device), lo, hi)
+    return {
+        "wall_ms": round(span["dur"] / 1e3, 3),
+        "device_busy_ms": round(busy / 1e3, 3),
+        "host_top": [[_short(n), round(us / 1e3, 3)]
+                     for n, us in _self_times(host).most_common(5)],
+        "device_top": [[_short(n), round(us / 1e3, 3)]
+                       for n, us in by_device.most_common(5)],
+    }
+
+
+def _checked_trace(tag, reply, kernel_name, batches, launches):
+    """A capture's trace against the server's ``/stats`` deltas over the
+    window: one ``tpusim.search.smoke`` span a batch, none on the listener's
+    thread, and one ``kernel_name`` device event a launch. Returns the trace
+    and its spans in time order."""
+    events = _trace_events(reply["trace"])
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"] == "tpusim.search.smoke"), key=lambda e: e["ts"])
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and kernel_name in e["name"]]
+    check(len(spans) == batches == reply["spans"].get("tpusim.search.smoke"),
+          f"[{tag}] {len(spans)} spans in the trace, {reply['spans']} in the "
+          f"reply, {batches} batches in /stats")
+    check(all(e["tid"] != reply["listener_tid"] for e in spans),
+          f"[{tag}] a search span on the listener's thread")
+    check(len(kernels) == launches > 0,
+          f"[{tag}] {len(kernels)} {kernel_name} events in the trace, {launches} "
+          "launches in /stats")
+    return events, spans
+
+
+def _second_capture_refused(profiler_port, tag):
+    try:
+        urllib.request.urlopen(
+            f"http://localhost:{profiler_port}/capture?duration_ms=100", timeout=60)
+    except urllib.error.HTTPError as e:
+        check(e.code == 409, f"[{tag}] a second capture got {e.code}, not 409")
+        return
+    check(False, f"[{tag}] a second capture was not refused")
+
+
+def listening_ports(pid):
+    """The TCP ports process ``pid`` listens on (``/proc``)."""
+    inodes = set()
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        with contextlib.suppress(OSError):
+            target = os.readlink(fd)
+            if target.startswith("socket:["):
+                inodes.add(target[8:-1])
+    ports = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        with contextlib.suppress(OSError), open(table) as f:
+            for row in list(f)[1:]:
+                cols = row.split()
+                if cols[3] == "0A" and cols[9] in inodes:  # LISTEN
+                    ports.add(int(cols[1].rsplit(":", 1)[1], 16))
+    return ports
+
+
+def _package_copy(directory) -> Path:
+    """The package, ``native/`` sources and ``pyproject.toml`` copied as a
+    fresh checkout holds them: no build directory, no built library."""
+    import shutil
+
+    root = Path(directory) / "fresh"
+    skip = shutil.ignore_patterns("__pycache__", "*.so", "*.o")
+    for name in ("gpusimilarity_tpu_torch", "native"):
+        shutil.copytree(ROOT / name, root / name, ignore=skip)
+    shutil.copy2(ROOT / "pyproject.toml", root / "pyproject.toml")
+    return root
+
+
+def _start_up_seconds(lines):
+    """From a server's log: the library's load line and the kernels' ready
+    lines, in log order, with the seconds each reports."""
+    order, seconds = [], {}
+    for line in lines:
+        m = re.search(r"loaded smoke: .*\(([0-9.]+)s\)", line)
+        if m:
+            order.append("load")
+            seconds["load_s"] = float(m.group(1))
+        m = re.search(r"uploaded smoke to .*\(([0-9.]+)s", line)
+        if m:
+            seconds["upload_s"] = float(m.group(1))
+        m = re.search(r"(\w+) kernel ready \(.*built in ([0-9.]+)s\)", line)
+        if m:
+            order.append(m.group(1))
+            seconds[f"{m.group(1)}_build_s"] = float(m.group(2))
+    return order, seconds
+
+
+def phase_profiled_servers(device, path, tmp, server_args=()):
+    """(x) the live profiling hook and the overlapped start-up.
+
+    Two servers on (d)'s library with ``--no_warmup --profiler_port``: fold
+    4 dense from a fresh copy of the package (its kernels built at start-up
+    while the library loads: the load's log line must come before
+    ``dense_phase1 kernel ready``), and bitplane from the checkout. On each,
+    a ``X_FIRST_MS`` capture opened right after ``ready`` holds the first
+    B=1 k=20 request, ``W_NEXT`` more and a burst of ``W_BURST``, every
+    answer exact by (d)'s rules; the trace holds one span a batch, none on
+    the listener's thread, and one kernel event a launch (``/stats``
+    deltas); a second capture meanwhile gets 409; the first request's span
+    and the median of the next ones are split into host and device time.
+    Then a capture on the bitplane server is cut by SIGINT: exit 0, trace
+    written. A server without the flag listens on its HTTP port only. Last,
+    ``tools.loadtest --profile_ms X_LOAD_MS``: its 32 clients under a
+    capture, read for the device's busy share, the search spans' p50 and
+    the share of request time outside any search span. Returns the
+    records and each kernel's launches in the captured windows."""
+    rows, pops = server_rows(device, SERVER_ROWS)
+    rng = np.random.default_rng(SEED + 31)
+    picks = [int(i) for i in rng.choice(SERVER_ROWS, 1 + W_NEXT + W_BURST,
+                                        replace=False)]
+    forms = [{"fp_hex": rows[i].cpu().numpy().view(np.uint8).tobytes().hex(),
+              "return_count": 20, "similarity_cutoff": 0, "dbnames": "smoke",
+              "dbkeys": "smoke"} for i in picks]
+    trace_dir = Path(tmp) / "traces"
+    records, launches = {}, {"bitplane_phase1": 0, "dense_phase1": 0}
+    for label, fold, kernel, kernel_name, flags, cold in X_SERVERS:
+        root = _package_copy(tmp) if cold else ROOT
+        profiler_port = _free_port()
+        logs, started = [], []
+        t0 = time.monotonic()
+        args = [*flags, *server_args, "--no_warmup", "--profiler_port",
+                str(profiler_port), "--profile_dir", str(trace_dir)]
+        with serving([path], args, "x", logs=logs, root=root,
+                     started=started) as port:
+            ready_s = time.monotonic() - t0
+            pid = started[0][0].pid
+            check(listening_ports(pid) == {port, profiler_port},
+                  f"[x] {label}: listening on {listening_ports(pid)}")
+            stats0 = _get(port, "/stats")
+            capture = profiler.start_capture(profiler_port, X_FIRST_MS)
+            times, replies = [], []
+            for form in forms[:1 + W_NEXT]:
+                sent = time.time()
+                replies.append(_post(port, form))
+                times.append((sent, time.time()))
+            got, _wall, _slow = _burst(port, forms[1 + W_NEXT:])
+            replies += got
+            done_at = time.time()
+            _second_capture_refused(profiler_port, "x")
+            reply = capture.result(timeout=X_FIRST_MS / 1e3 + 300)
+            stats = _get(port, "/stats")
+            lo, hi = reply["window"]
+            check(times[0][0] >= lo and done_at <= hi,
+                  f"[x] {label}: the requests ran outside the window "
+                  f"[{lo:.3f}, {hi:.3f}] ({times[0][0]:.3f}-{done_at:.3f})")
+            launched = (stats["kernel_launches"][kernel]
+                        - stats0["kernel_launches"][kernel])
+            events, spans = _checked_trace(
+                "x", reply, kernel_name, stats["batches"] - stats0["batches"],
+                launched)
+            launches[kernel] += launched
+            for i, answer in zip(picks, replies):
+                ids, smiles, scores = zip(*answer["results"])
+                _check_answer("x", label, rows, pops, rows[i], 20, 0.0, "tanimoto",
+                              (1.0, 1.0), scores, _smoke_rows("x", ids, smiles),
+                              answer["approximate_count"], fold, i, quiet=True)
+            nxt = sorted(spans[1:1 + W_NEXT], key=lambda e: e["dur"])
+            record = {
+                "ready_s": round(ready_s, 3),
+                "first_ms": round((times[0][1] - times[0][0]) * 1e3, 3),
+                "next_p50_ms": round(statistics.median(
+                    (b - a) * 1e3 for a, b in times[1:]), 3),
+                "first_span": span_split(events, spans[0]),
+                "next_median_span": span_split(events, nxt[len(nxt) // 2]),
+                "spans": len(spans), "launches": launched,
+                "trace_bytes": reply["bytes"], "events": reply["events"],
+                "threads": reply["threads"],
+            }
+            if cold:
+                order, seconds = _start_up_seconds(started[0][1])
+                check("load" in order and "dense_phase1" in order
+                      and order.index("load") < order.index("dense_phase1"),
+                      f"[x] cold start: log order {order}, not the load first")
+                record["start_up"] = seconds
+            else:
+                # a capture cut short by SIGINT: the server still exits 0
+                # and the trace is written
+                before = set(trace_dir.iterdir())
+                profiler.start_capture(profiler_port, 60_000)
+        rc, lines = logs[0]
+        check(rc == 0, f"[x] {label}: exit {rc} on SIGINT:\n" + "".join(lines[-20:]))
+        if not cold:
+            check(len(set(trace_dir.iterdir()) - before) == 1,
+                  f"[x] {label}: no trace written by the capture SIGINT cut")
+            record["sigint_during_capture_rc"] = rc
+        records[label] = record
+        log(f"[x] {label}: ready in {ready_s:.2f}s"
+            + (f" (start-up {record['start_up']})" if cold else "")
+            + f"; {len(replies)} answers exact inside a {X_FIRST_MS} ms capture, "
+            f"{len(spans)} spans = batches, {launched} {kernel_name} events = "
+            f"launches; trace {reply['bytes']:,} bytes, {reply['events']:,} "
+            f"events, {reply['threads']} threads; 409 for a second capture")
+        for key in ("first_span", "next_median_span"):
+            log(f"[x] {label} {key}: {json.dumps(record[key])}")
+
+    # off by default: no second port
+    started = []
+    with serving([path], [*server_args, "--no_warmup"], "x", started=started) as port:
+        ports = listening_ports(started[0][0].pid)
+        check(ports == {port}, f"[x] without --profiler_port: listening on {ports}")
+    log(f"[x] without --profiler_port the server listens on {port} only")
+
+    p = _tool("x", "loadtest", "--profile_ms", X_LOAD_MS, env={"TMPDIR": str(tmp)},
+              timeout=900)
+    check(p["failures"] == 0 and p["requests"] == p["searches"],
+          f"[x] loadtest: {p['failures']} failures, {p['requests']} requests, "
+          f"{p['searches']} searches")
+    events = _trace_events(p["profile"]["trace"])
+    complete = [e for e in events if e.get("ph") == "X"]
+    device = _merged((e["ts"], e["ts"] + e["dur"]) for e in complete
+                     if e.get("cat") in DEVICE_CATS)
+    searches = [e for e in complete if e.get("cat") == "user_annotation"
+                and e["name"].startswith(profiler.SPAN_PREFIX)]
+    requests = [e for e in complete if e.get("cat") == "user_annotation"
+                and e["name"] == profiler.REQUEST_SPAN]
+    check(searches and requests, "[x] loadtest: no search or request spans")
+    in_search = _merged((e["ts"], e["ts"] + e["dur"]) for e in searches)
+    request_us = sum(e["dur"] for e in requests)
+    records["load"] = {
+        "qps": p["profiled_qps"], "p50_ms": p["profiled_p50_ms"],
+        "samples": p["profiled_samples"],
+        "device_busy_share": round(
+            sum(b - a for a, b in device) / 1e3 / X_LOAD_MS, 4),
+        "search_span_p50_ms": round(statistics.median(
+            e["dur"] for e in searches) / 1e3, 3),
+        "request_outside_search_share": round(1 - sum(
+            _covered(in_search, e["ts"], e["ts"] + e["dur"]) for e in requests)
+            / request_us, 4),
+        "spans": len(searches), "requests_traced": len(requests),
+        "trace_bytes": p["profile"]["bytes"], "events": p["profile"]["events"],
+    }
+    for name, n in p["kernel_launches"].items():
+        launches[name] += n
+    log(f"[x] load ({gpu_line()}): {json.dumps(records['load'])}")
+    log("[x] " + json.dumps({"profiled_servers": records, "card": gpu_line()}))
+    return records, launches
+
+
 def phase_dryrun(device):
     """(s) ``tools/dryrun_multichip`` over 4 shards on the card."""
     from gpusimilarity_tpu_torch.tools import dryrun_multichip
@@ -2435,6 +2767,9 @@ def main() -> int:
     with phase("w"):
         first_requests, w_launches = phase_first_requests(device, smoke_path)
         check(all(w_launches.values()), f"(w) launched no kernel: {w_launches}")
+    with phase("x"):
+        profiled, x_launches = phase_profiled_servers(device, smoke_path, run_tmp.name)
+        check(all(x_launches.values()), f"(x) launched no kernel: {x_launches}")
     run_tmp.cleanup()
     torch.cuda.empty_cache()
 
@@ -2470,10 +2805,12 @@ def main() -> int:
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}, entry points "
         f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}, "
-        f"first requests {w_launches['bitplane_phase1']}; "
+        f"first requests {w_launches['bitplane_phase1']}, profiled "
+        f"{x_launches['bitplane_phase1']}; "
         f"dense engine {dense_engine_launches}, server {folded_server_launches}, "
         f"sharded {s_launches['dense_phase1']}, first requests "
-        f"{w_launches['dense_phase1']}; matrix-product probe "
+        f"{w_launches['dense_phase1']}, profiled {x_launches['dense_phase1']}; "
+        f"matrix-product probe "
         f"{probe_launches}; measurement entry points (t) bitplane "
         f"{t_launches['bitplane_phase1']}, dense {t_launches['dense_phase1']}; "
         f"last tools (u) bitplane {u_launches['bitplane_phase1']}, dense "
@@ -2520,6 +2857,20 @@ def main() -> int:
         f"{r['next_p50_ms']} ms, burst of {W_BURST} {r['burst_ms']} ms (next "
         f"{W_LATER} p50 {r['later_burst_p50_ms']})"
         for r in first_requests))
+    load = profiled["load"]
+    log(f"profiled servers ({gpu_line()}), {SERVER_ROWS:,} rows, --no_warmup "
+        f"inside a {X_FIRST_MS} ms capture: " + "; ".join(
+            f"{label} ready {r['ready_s']} s{' ' + str(r['start_up']) if cold else ''}"
+            f", first {r['first_ms']} ms (span {r['first_span']['wall_ms']} ms, "
+            f"device {r['first_span']['device_busy_ms']} ms), next {W_NEXT} p50 "
+            f"{r['next_p50_ms']} ms (span {r['next_median_span']['wall_ms']} ms, "
+            f"device {r['next_median_span']['device_busy_ms']} ms), trace "
+            f"{r['trace_bytes']:,} bytes" for label, *_, cold in X_SERVERS
+            for r in [profiled[label]])
+        + f"; load {load['qps']} qps under a {X_LOAD_MS} ms capture, device busy "
+        f"share {load['device_busy_share']}, search span p50 "
+        f"{load['search_span_p50_ms']} ms, request time outside any search "
+        f"{load['request_outside_search_share']}")
     log(f"entry points ({gpu_line()}): createdb "
         f"{entry_points['createdb_rates'][0]:.0f} compounds/s to .fsim, "
         f"{entry_points['createdb_rates'][1]:.0f} to .tfsim; socket round trip "
@@ -2557,13 +2908,15 @@ def main() -> int:
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
                + entry_points["launches"] + s_launches["bitplane_phase1"]
-               + w_launches["bitplane_phase1"] + t_launches["bitplane_phase1"]
+               + w_launches["bitplane_phase1"] + x_launches["bitplane_phase1"]
+               + t_launches["bitplane_phase1"]
                + u_launches["bitplane_phase1"],
                max_err, timing)
     k1.update({"ms_b128": timing[128][0], "plain_ms_b128": timing[128][1],
                "bound_ms_b128": timing[128][2][0]})
     k2 = entry("dense_phase1", dense_engine_launches + folded_server_launches
                + s_launches["dense_phase1"] + w_launches["dense_phase1"]
+               + x_launches["dense_phase1"]
                + t_launches["dense_phase1"] + u_launches["dense_phase1"],
                max(max_err2, fold_err), timing2)
     log(json.dumps({"kernels": [k1, k2, k3]}))

@@ -8,13 +8,17 @@ The library shards over every visible CUDA card; without one the server
 raises, unless ``--cpu_only`` asks for the plain PyTorch path on the host.
 A server starts in this order:
 
-1. builds: the two phase-1 kernels it launches, each compiled by nvcc at
-   first use or loaded from its cached build (``utils/kernels.py``), and
-   beside them the native host runtime, compiled from ``native/`` at first
-   use the same way or loaded (``utils/native.py``; without a compiler it
-   logs one warning and the host work runs in numpy);
-2. each library is loaded and uploaded to the cards;
-3. warm-up (``--no_warmup`` skips it): every database runs the JAX server's
+1. builds and loads at once (:func:`start_up`, the counterpart of the JAX
+   server compiling while its libraries stream): on two threads, the two
+   phase-1 kernels it launches, each compiled by nvcc at first use or
+   loaded from its cached build (``utils/kernels.py``; logs ``<name> kernel
+   ready (...)`` when both are), and the native host runtime, compiled from
+   ``native/`` at first use the same way or loaded (``utils/native.py``;
+   without a compiler it logs one warning and the host work runs in numpy);
+   meanwhile each library is loaded and uploaded to the cards (a store
+   build that reaches a kernel waits for that kernel's build). A build
+   error stops the start-up;
+2. warm-up (``--no_warmup`` skips it): every database runs the JAX server's
    warm-up searches, its row 0 and a query per plane bucket that traffic is
    likely to hit, at each k of ``--warmup_ks`` and each batch size 1, 2, 4,
    ... up to ``--warmup_batch`` (at most ``--max_batch``), through the real
@@ -22,6 +26,11 @@ A server starts in this order:
    shape, but a first search still pays for the first launch of each kernel
    module, the caching allocator's growth at its shapes and the first pinned
    copies; the warm-up pays them before the ready line;
+3. with ``--profiler_port P``, process ``i`` of the job starts a
+   :class:`~..serve.profiler.ProfilerListener` on port ``P + i`` (a
+   ``GET /capture?duration_ms=D`` there writes a ``torch.profiler`` trace of
+   the whole process under ``--profile_dir``); off by default, and then no
+   port is bound and no profiler started;
 4. ``tpusimilarity ready on ...``. A one-process server then warms the
    host's page cache for its memory-mapped rescore rows and string blobs in
    the background, and logs ``prewarmed N GiB of rescore pages in S s`` (or
@@ -47,19 +56,21 @@ process 0 serves HTTP and the socket and fans each search out to the others
 <name> fed <n> fp bytes`` and ``tpusimilarity worker <i> ready`` and serve
 until process 0 shuts down.
 
-Three flags of the JAX server have no counterpart and are refused:
-``--pallas`` (the CUDA kernels are the only device path), ``--jax_cache_dir``
-(there is no XLA program to cache; the kernels' builds are cached under the
-build dir) and ``--jax_profiler_port`` (``torch.profiler`` traces in
-process).
+Three flags of the JAX server are refused: ``--pallas`` (the CUDA kernels
+are the only device path), ``--jax_cache_dir`` (there is no XLA program to
+cache; the kernels' builds are cached under the build dir) and
+``--jax_profiler_port``, whose counterpart is ``--profiler_port`` with
+``--profile_dir`` (a trace is pulled over HTTP, not by TensorBoard).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
-import threading
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 from ..serve.batching import DEFAULT_RESULT_TIMEOUT_S
 
@@ -143,12 +154,61 @@ def parse_args(argv=None):
         "(each k picks its candidate fetch width, and with it the shapes of "
         "the selection and the top-k)",
     )
+    parser.add_argument(
+        "--profiler_port", default=0, type=int,
+        help="serve on-demand torch.profiler traces of this process on this "
+        "port (process i of a job on port + i): GET /capture?duration_ms=D. "
+        "0 (default): off",
+    )
+    parser.add_argument(
+        "--profile_dir", default=os.path.join(tempfile.gettempdir(), "tpusim-traces"),
+        help="where --profiler_port writes its traces",
+    )
     return parser.parse_args(argv)
 
 
 def warmup_ks(args) -> tuple[int, ...]:
     """The k values of ``--warmup_ks``, parsed as the JAX server does."""
     return tuple(int(k) for k in str(args.warmup_ks).split(",") if k.strip())
+
+
+def _build_kernels(log) -> None:
+    from ..utils import kernels
+
+    # the kernels the searches launch; the probe's matrix-product kernel
+    # serves no request
+    for name, build in kernels.load_all(SERVING_KERNELS).items():
+        log.info("%s kernel ready (%s, built in %.1fs)", name, build.path.name,
+                 build.seconds)
+
+
+def start_up(args):
+    """Join the job, build and load at once: the kernels' nvcc runs (none
+    with ``--cpu_only``) and the native host runtime on two threads while
+    the libraries load and upload here; both joined before it returns, and
+    a build's error raised. Returns ``(mesh, registry)``."""
+    from ..models.registry import DatabaseRegistry
+    from ..parallel import multihost
+    from ..parallel.mesh import make_mesh
+    from ..utils import native
+
+    if args.coordinator:
+        multihost.initialize(args.coordinator, args.num_processes, args.process_id)
+    log = logging.getLogger("tpusimilarity")
+    mesh = make_mesh(["cpu"] if args.cpu_only else None)
+    with ThreadPoolExecutor(2, thread_name_prefix="tpusim-build") as pool:
+        builds = [pool.submit(native.available)]
+        if not args.cpu_only:
+            builds.append(pool.submit(_build_kernels, log))
+        registry = DatabaseRegistry.from_fsim_files(
+            args.dbnames, mesh=mesh, device_bitcount=args.device_bitcount,
+            fold_factor=args.fold, scan_mode=args.scan_mode, popless=args.popless,
+            async_prewarm=mesh.n_processes == 1,
+        )
+        for build in builds:
+            build.result()
+    log.info("native host runtime: %s", native.origin())
+    return mesh, registry
 
 
 def main(argv=None):
@@ -159,37 +219,8 @@ def main(argv=None):
         stream=sys.stderr,
     )
     from ..parallel import multihost
-    from ..parallel.mesh import make_mesh
 
-    if args.coordinator:
-        multihost.initialize(args.coordinator, args.num_processes, args.process_id)
-
-    log = logging.getLogger("tpusimilarity")
-    mesh = make_mesh(["cpu"] if args.cpu_only else None)
-    from ..utils import native
-
-    # the host runtime builds (or loads) beside the kernels' nvcc runs
-    host_runtime = threading.Thread(target=native.available, name="tpusim-native")
-    host_runtime.start()
-    if not args.cpu_only:
-        from ..utils import kernels
-
-        # the kernels the searches launch; the probe's matrix-product
-        # kernel serves no request
-        for name, build in kernels.load_all(SERVING_KERNELS).items():
-            log.info("%s kernel ready (%s, built in %.1fs)", name,
-                     build.path.name, build.seconds)
-    host_runtime.join()
-    log.info("native host runtime: %s", native.origin())
-
-    from ..models.registry import DatabaseRegistry
-    from ..serve.server import SimilarityServer
-
-    registry = DatabaseRegistry.from_fsim_files(
-        args.dbnames, mesh=mesh, device_bitcount=args.device_bitcount,
-        fold_factor=args.fold, scan_mode=args.scan_mode, popless=args.popless,
-        async_prewarm=mesh.n_processes == 1,
-    )
+    mesh, registry = start_up(args)
     # multi-process: process 0 serves and fans each request out through the
     # controller; the others execute the broadcast requests in a loop
     controller = None
@@ -201,6 +232,29 @@ def main(argv=None):
         # every process of a job, in lockstep, before it serves
         registry.warmup(ks=warmup_ks(args),
                         max_batch=min(args.warmup_batch, args.max_batch))
+    listener = None
+    if args.profiler_port:
+        from ..serve.profiler import ProfilerListener
+
+        # processes of a job may share a host: each its own port
+        listener = ProfilerListener(
+            args.hostname, args.profiler_port + mesh.process_index,
+            args.profile_dir, cuda=not args.cpu_only,
+            process_index=mesh.process_index)
+        logging.getLogger("tpusimilarity").info(
+            "profiler listening on %s:%d (GET /capture?duration_ms=D; traces "
+            "in %s)", args.hostname, listener.port, args.profile_dir)
+    try:
+        _serve(args, mesh, registry, controller)
+    finally:
+        if listener is not None:
+            listener.close()
+
+
+def _serve(args, mesh, registry, controller):
+    from ..parallel import multihost
+    from ..serve.server import SimilarityServer
+
     if controller is not None:
         for name in registry.names():
             print(f"worker {mesh.process_index}: {name} fed "

@@ -69,6 +69,7 @@ class DatabaseRegistry:
         self.device = self.mesh.devices[0]
         self._dbs: dict[str, FingerprintDB] = {}
         self.search_count = 0
+        self.batch_count = 0
         self.total_search_seconds = 0.0
         self._stats_lock = threading.Lock()
         # set on process 0 of a multi-process job: fans each search out to
@@ -210,7 +211,8 @@ class DatabaseRegistry:
         from ..ops import bitplane_phase1, dense_phase1
 
         with self._stats_lock:
-            searches, seconds = self.search_count, self.total_search_seconds
+            searches, batches = self.search_count, self.batch_count
+            seconds = self.total_search_seconds
         return {
             "databases": {
                 name: {
@@ -228,6 +230,7 @@ class DatabaseRegistry:
             "device": ", ".join(map(str, self.mesh.distinct_devices)),
             "processes": self.mesh.n_processes,
             "searches": searches,
+            "batches": batches,
             "total_search_seconds": round(seconds, 6),
             "kernel_launches": {
                 "bitplane_phase1": bitplane_phase1.launch_count(),
@@ -272,7 +275,7 @@ class DatabaseRegistry:
             # a key mismatch takes the engine's empty-result path on every
             # process alike (no kernel runs)
             key = db.dbkey if ok else db.dbkey + "\x00mismatch"
-            with torch.profiler.record_function(f"gpusim.search.{name}"):
+            with torch.profiler.record_function(f"tpusim.search.{name}"):
                 per_db.append(
                     db.search_batch(
                         queries, k=list(ks), cutoff=list(cutoffs), dbkey=key,
@@ -319,6 +322,7 @@ class DatabaseRegistry:
         elapsed = time.monotonic() - t0
         with self._stats_lock:
             self.search_count += b
+            self.batch_count += 1
             self.total_search_seconds += elapsed
         log.info(
             "batched search over %s: %d queries, %.1f ms",

@@ -1,0 +1,231 @@
+"""Trace a running server on demand (the port's counterpart of the JAX
+server's ``--jax_profiler_port``, ``gpusimilarity_tpu/cli/server.py``).
+
+The JAX server starts ``jax.profiler.start_server`` and a TensorBoard client
+pulls traces from it. Here :class:`ProfilerListener` is a small HTTP server
+on a port of its own, apart from the search API::
+
+    curl -s 'http://localhost:<port>/capture?duration_ms=2000'
+
+runs one ``torch.profiler`` window of that many milliseconds (1 to 60,000;
+default 2,000) over the whole process: the host ops of every thread (the
+batcher's pool threads, where each database's pass runs inside a
+``tpusim.search.<name>`` span, the HTTP handler threads, whose requests run
+inside ``tpusim.request`` spans, the socket threads and the per-card shard
+workers) and, on the card, every kernel CUPTI sees, the ctypes-launched
+phase-1 kernels included. The trace is written with ``export_chrome_trace``
+as ``<trace_dir>/tpusim-p<process>-<UTC stamp>.pt.trace.json`` (Perfetto or
+``chrome://tracing`` open it) and the reply is JSON::
+
+    {"trace": path, "duration_ms": D, "events": n, "threads": t,
+     "spans": {"tpusim.search.<name>": count, ...}, "device_kernels": count,
+     "bytes": file size, "window": [unix start, unix stop],
+     "listener_tid": the capturing thread's id in the trace}
+
+A bad ``duration_ms`` gets 400; a capture asked for while one runs gets 409
+(the process holds one profiler); a profiler that fails to start or stop
+gets 500 with its error. ``GET /status`` answers ``{"capturing": bool}``.
+While no capture runs the listener costs a search nothing.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import os
+import threading
+import time
+import urllib.parse
+import urllib.request
+from concurrent.futures import Future
+from datetime import datetime, timezone
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+import torch
+
+log = logging.getLogger("tpusimilarity")
+
+SPAN_PREFIX = "tpusim.search."
+REQUEST_SPAN = "tpusim.request"
+DEFAULT_DURATION_MS = 2000
+MAX_DURATION_MS = 60_000
+# how long close() waits for a capture in flight to stop and write its file
+CLOSE_TIMEOUT_S = 300.0
+
+
+class CaptureBusy(RuntimeError):
+    """A capture is already running (or the listener is closing)."""
+
+
+def _all_threads_config():
+    """The experimental config that makes one ``torch.profiler`` window
+    record the host ops of every thread of the process; without it the
+    RecordFunction callbacks are the opening thread's only. Raises where the
+    installed torch lacks the option: a window that silently saw one thread
+    would be a wrong trace."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    return _ExperimentalConfig(profile_all_threads=True)
+
+
+def trace_counts(events) -> dict:
+    """What the capture reply reports of a trace's ``traceEvents``: the
+    complete events, the host threads of this process that recorded any,
+    the search spans by name and the device kernels."""
+    pid = os.getpid()
+    complete = [e for e in events if e.get("ph") == "X"]
+    return {
+        "events": len(complete),
+        "threads": len({e["tid"] for e in complete if e.get("pid") == pid}),
+        "spans": dict(collections.Counter(
+            e["name"] for e in complete
+            if e.get("cat") == "user_annotation"
+            and e["name"].startswith(SPAN_PREFIX))),
+        "device_kernels": sum(1 for e in complete if e.get("cat") == "kernel"),
+    }
+
+
+class ProfilerListener:
+    """An HTTP listener on ``hostname:port`` (0 picks a free port; see
+    :attr:`port`) that captures ``torch.profiler`` traces of this process
+    into ``trace_dir``, with CUDA activity when ``cuda`` is true. Binding
+    failures raise here; :meth:`close` stops it."""
+
+    def __init__(self, hostname: str, port: int, trace_dir, cuda: bool,
+                 process_index: int = 0):
+        from torch.profiler import ProfilerActivity
+
+        _all_threads_config()  # fail at start-up, not at the first capture
+        self.trace_dir = Path(trace_dir)
+        self.trace_dir.mkdir(parents=True, exist_ok=True)
+        self.activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])
+        self.process_index = process_index
+        self._busy = threading.Lock()
+        self._stop = threading.Event()
+        self.capturing = threading.Event()
+        self._httpd = ThreadingHTTPServer((hostname, port), _handler(self))
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="tpusim-profiler", daemon=True)
+        self._thread.start()
+
+    def capture(self, duration_ms: int) -> dict:
+        """One window of ``duration_ms`` (cut short by :meth:`close`),
+        exported and counted; raises :class:`CaptureBusy` if one runs."""
+        if not self._busy.acquire(blocking=False):
+            raise CaptureBusy("a capture is already running")
+        try:
+            if self._stop.is_set():
+                raise CaptureBusy("the listener is closing")
+            prof = torch.profiler.profile(
+                activities=self.activities,
+                experimental_config=_all_threads_config())
+            with prof:
+                self.capturing.set()
+                start = time.time()
+                self._stop.wait(duration_ms / 1e3)
+                stop = time.time()
+            self.capturing.clear()
+            stamp = datetime.now(timezone.utc).strftime("%Y%m%dT%H%M%S.%fZ")
+            path = self.trace_dir / f"tpusim-p{self.process_index}-{stamp}.pt.trace.json"
+            prof.export_chrome_trace(str(path))
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+            reply = {"trace": str(path), "duration_ms": duration_ms,
+                     **trace_counts(events), "bytes": path.stat().st_size,
+                     "window": [start, stop],
+                     "listener_tid": threading.get_native_id()}
+            log.info("profiler: %s (%d events, %d threads, spans %s, %d device "
+                     "kernels, %d bytes)", path, reply["events"], reply["threads"],
+                     reply["spans"], reply["device_kernels"], reply["bytes"])
+            return reply
+        finally:
+            self.capturing.clear()
+            self._busy.release()
+
+    def close(self) -> None:
+        """Stop listening; a capture in flight ends at once and still
+        writes its trace before this returns."""
+        self._stop.set()
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+        if self._busy.acquire(timeout=CLOSE_TIMEOUT_S):
+            self._busy.release()
+
+
+def _handler(listener: ProfilerListener):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            if not self.path.startswith("/status"):  # polled by start_capture
+                log.info("profiler %s - %s", self.address_string(), fmt % args)
+
+        def _send_json(self, code: int, payload: dict):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            url = urllib.parse.urlsplit(self.path)
+            if url.path == "/status":
+                self._send_json(200, {"capturing": listener.capturing.is_set()})
+                return
+            if url.path != "/capture":
+                self._send_json(404, {"error": "not found"})
+                return
+            query = urllib.parse.parse_qs(url.query)
+            raw = query.get("duration_ms", [str(DEFAULT_DURATION_MS)])[0]
+            try:
+                duration_ms = int(raw)
+            except ValueError:
+                duration_ms = 0
+            if not 1 <= duration_ms <= MAX_DURATION_MS:
+                self._send_json(400, {"error": f"duration_ms must be an integer "
+                                      f"in 1..{MAX_DURATION_MS}, got {raw!r}"})
+                return
+            try:
+                self._send_json(200, listener.capture(duration_ms))
+            except CaptureBusy as e:
+                self._send_json(409, {"error": str(e)})
+            except Exception as e:  # boundary: report, keep listening
+                log.exception("profiler capture failed")
+                self._send_json(500, {"error": f"capture failed: {e}"})
+
+    return Handler
+
+
+def start_capture(port: int, duration_ms: int = DEFAULT_DURATION_MS,
+                  hostname: str = "localhost", timeout: float = 120.0) -> Future:
+    """Ask the listener on ``port`` for a capture on a thread of its own and
+    return once its window is open (or the request has ended); the future
+    holds the reply's JSON, or the HTTP error."""
+    done: Future = Future()
+    url = f"http://{hostname}:{port}"
+
+    def ask():
+        try:
+            with urllib.request.urlopen(
+                    f"{url}/capture?duration_ms={duration_ms}",
+                    timeout=duration_ms / 1e3 + timeout) as r:
+                done.set_result(json.loads(r.read()))
+        except Exception as e:  # handed to the caller through the future
+            done.set_exception(e)
+
+    threading.Thread(target=ask, name="tpusim-capture-client", daemon=True).start()
+    deadline = time.monotonic() + timeout
+    while not done.done():
+        with urllib.request.urlopen(f"{url}/status", timeout=timeout) as r:
+            if json.loads(r.read())["capturing"]:
+                break
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no capture window opened on port {port}")
+        time.sleep(0.02)
+    return done

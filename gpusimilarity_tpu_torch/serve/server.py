@@ -9,14 +9,16 @@
   The URL suffix names the databases for clients that post no ``dbnames``;
   ``all`` means every loaded database.
 * ``GET /healthz`` and ``GET /stats`` (which also reports the kernels'
-  launch counts).
+  launch counts and the batched passes).
 * ``POST /similarity_search`` + ``GET /`` serve a debug HTML UI when enabled
   (the reference's ``--http_interface`` mode).
 * ``socket_name`` also serves the reference's binary local-socket protocol
   (:mod:`.socket_server`) beside HTTP.
 
 HTTP and socket handler threads only enqueue on one
-:class:`BatchingSearcher`, which runs every search on the device.
+:class:`BatchingSearcher`, which runs every search on the device. Each HTTP
+POST runs inside a ``tpusim.request`` profiler span, so a trace
+(:mod:`.profiler`) shows what a request spends around its search pass.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from email.policy import HTTP as HTTP_POLICY
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
+import torch
+
 from ..models.registry import DatabaseRegistry
 from ..ops.scan import TANIMOTO, TVERSKY
 from ..utils.fingerprints import (
@@ -43,6 +47,7 @@ from ..utils.fingerprints import (
     smiles_to_query_words,
 )
 from .batching import DEFAULT_RESULT_TIMEOUT_S, BatchingSearcher
+from .profiler import REQUEST_SPAN
 
 # request-size guard: the largest top-k a client may ask for
 MAX_RETURN_COUNT = 10_000
@@ -296,6 +301,10 @@ def make_handler(service: SearchService, debug_ui: bool = False):
                 self._send_json(404, {"error": "not found"})
 
         def do_POST(self):
+            with torch.profiler.record_function(REQUEST_SPAN):
+                self._post()
+
+        def _post(self):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 body = self.rfile.read(length)

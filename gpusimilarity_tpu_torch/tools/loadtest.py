@@ -3,13 +3,19 @@
 
     python -m gpusimilarity_tpu_torch.tools.loadtest [--preset loadtest|loadtest104]
         [--rows N] [--clients C] [--dir PATH] [--port P] [--cpu_only]
+        [--profile_ms D]
 
 Starts ``python -m gpusimilarity_tpu_torch.cli.server`` on a library as a
 subprocess, waits for its ``tpusimilarity ready on`` line, warms it with
 1, 2, 4, ... concurrent requests, then sends two passes of 256 requests
 (cold, then warm) from ``--clients`` threads. Every query is one of the
 library's first 64 rows, and every answer must lead with that row's id at
-score 1.0. The server is stopped however the run ends.
+score 1.0. With ``--profile_ms D`` the server also gets ``--profiler_port``,
+and after the warm pass the clients keep sending while one ``D`` ms
+capture runs (``serve/profiler.py``): a third pass, ``profiled``, counts the
+requests that began and ended inside the window, and the line carries the
+capture's reply (``profile``: the trace's path and counts). The server is
+stopped however the run ends.
 
 Presets, each the constants of one root script:
 
@@ -172,6 +178,10 @@ def main(argv=None) -> int:
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--cpu_only", action="store_true",
                     help="serve with the plain versions on the host")
+    ap.add_argument("--profile_ms", type=int, default=0,
+                    help="after the warm pass, one server-side torch.profiler "
+                    "capture of this many ms while the clients keep sending "
+                    "(0: none)")
     args = ap.parse_args(argv)
     preset = PRESETS[args.preset]
     rows = args.rows or preset["rows"]
@@ -190,6 +200,9 @@ def main(argv=None) -> int:
                        *preset.get("server_args", ())]
         if args.cpu_only:
             server_args.append("--cpu_only")
+        if args.profile_ms:
+            profiler_port = free_port()
+            server_args += ["--profiler_port", str(profiler_port)]
         failures = []
 
         def query(i: int) -> float:
@@ -231,6 +244,10 @@ def main(argv=None) -> int:
                 })
                 print(f"LOAD {label}: {PASS_REQUESTS} queries in {wall:.1f}s = "
                       f"{PASS_REQUESTS / wall:.1f} qps", file=sys.stderr, flush=True)
+            if args.profile_ms:
+                out.update(profiled_pass(query, profiler_port, args.profile_ms,
+                                         args.clients))
+                requests += out.pop("requests")
             stats = get_json(port, "/stats")
     for f in failures[:5]:
         print(f"FAILED {f}", file=sys.stderr)
@@ -255,6 +272,40 @@ def main(argv=None) -> int:
         "card": card(args.cpu_only),
     }), flush=True)
     return 1 if failures else 0
+
+
+def profiled_pass(query, profiler_port: int, duration_ms: int, clients: int) -> dict:
+    """``clients`` threads send ``query`` from the moment a capture's window
+    opens until its reply arrives: the reply, the requests sent, and the qps
+    and latency of those that began and ended inside the window."""
+    from ..serve.profiler import start_capture
+
+    capture = start_capture(profiler_port, duration_ms)
+    spans: list[tuple[float, float]] = []
+
+    def client(c: int) -> None:
+        i = c
+        while not capture.done():
+            t0 = time.time()
+            lat = query(i)
+            spans.append((t0, t0 + lat))
+            i += clients
+
+    with cf.ThreadPoolExecutor(clients) as ex:
+        for f in [ex.submit(client, c) for c in range(clients)]:
+            f.result()
+    profile = capture.result()
+    lo, hi = profile["window"]
+    lat = sorted(b - a for a, b in spans if a >= lo and b <= hi)
+    print(f"LOAD profiled: {len(lat)} queries inside the {duration_ms} ms window "
+          f"({len(spans)} sent); trace {profile['trace']}", file=sys.stderr, flush=True)
+    return {
+        "requests": len(spans),
+        "profiled_qps": round(len(lat) / (hi - lo), 1),
+        "profiled_p50_ms": round(lat[len(lat) // 2] * 1e3, 3) if lat else None,
+        "profiled_samples": len(lat),
+        "profile": profile,
+    }
 
 
 def card(cpu_only: bool) -> str:
