@@ -29,13 +29,23 @@ A server starts in this order:
 3. with ``--profiler_port P``, process ``i`` of the job starts a
    :class:`~..serve.profiler.ProfilerListener` on port ``P + i`` (a
    ``GET /capture?duration_ms=D`` there writes a ``torch.profiler`` trace of
-   the whole process under ``--profile_dir``); off by default, and then no
-   port is bound and no profiler started;
+   the whole process under ``--profile_dir``, and ``GET /spans`` the
+   served path's span records); the listener primes the profiler first, so
+   its device tracing starts before the ready line. Off by default, and
+   then no port is bound and no profiler started;
 4. ``tpusimilarity ready on ...``. A one-process server then warms the
    host's page cache for its memory-mapped rescore rows and string blobs in
    the background, and logs ``prewarmed N GiB of rescore pages in S s`` (or
    ``rescore prewarm skipped (...)`` / ``rescore prewarm not needed
    (...)``); a multi-process job warms before it serves.
+
+``GET /stats`` reports, under ``startup``, the seconds from the process's
+start to each start-up step it reached: ``imported`` (the package and torch
+imported), ``cuda_ready`` (a CUDA context on every card), ``kernels_loaded``,
+``native_loaded``, ``library_loaded``, ``store_built``, ``warmed`` and
+``ready`` (a ``--cpu_only`` server has no ``cuda_ready`` and no
+``kernels_loaded``). They come in that order, but for the kernels and
+the native runtime, which load on threads of their own beside the rest.
 
 SIGINT at any moment after the ready line closes the server and exits 0.
 ``--fold``, ``--gpu_bitcount``, ``--scan_mode`` and ``--popless`` choose the
@@ -73,6 +83,7 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 from ..serve.batching import DEFAULT_RESULT_TIMEOUT_S
+from ..serve.spans import STARTUP
 
 SERVING_KERNELS = ("bitplane_phase1", "dense_phase1")
 
@@ -182,6 +193,23 @@ def _build_kernels(log) -> None:
                  build.seconds)
 
 
+def _open_cards() -> None:
+    """A CUDA context on every visible card, here on the thread that loads
+    the libraries (which would open them anyway, in the fold decision or
+    the first upload), so that their cost is a step of its own."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.mem_get_info(i)
+
+
+def _marked(step: str, fn, *args):
+    """``fn(*args)``, then mark start-up step ``step``."""
+    out = fn(*args)
+    STARTUP.mark(step)
+    return out
+
+
 def start_up(args):
     """Join the job, build and load at once: the kernels' nvcc runs (none
     with ``--cpu_only``) and the native host runtime on two threads while
@@ -197,14 +225,18 @@ def start_up(args):
     log = logging.getLogger("tpusimilarity")
     mesh = make_mesh(["cpu"] if args.cpu_only else None)
     with ThreadPoolExecutor(2, thread_name_prefix="tpusim-build") as pool:
-        builds = [pool.submit(native.available)]
+        builds = [pool.submit(_marked, "native_loaded", native.available)]
         if not args.cpu_only:
-            builds.append(pool.submit(_build_kernels, log))
+            builds.append(pool.submit(_marked, "kernels_loaded", _build_kernels, log))
+            _open_cards()
+            STARTUP.mark("cuda_ready")
         registry = DatabaseRegistry.from_fsim_files(
             args.dbnames, mesh=mesh, device_bitcount=args.device_bitcount,
             fold_factor=args.fold, scan_mode=args.scan_mode, popless=args.popless,
             async_prewarm=mesh.n_processes == 1,
+            on_loaded=lambda: STARTUP.mark("library_loaded"),
         )
+        STARTUP.mark("store_built")
         for build in builds:
             build.result()
     log.info("native host runtime: %s", native.origin())
@@ -212,6 +244,7 @@ def start_up(args):
 
 
 def main(argv=None):
+    STARTUP.mark("imported")
     args = parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -232,6 +265,7 @@ def main(argv=None):
         # every process of a job, in lockstep, before it serves
         registry.warmup(ks=warmup_ks(args),
                         max_batch=min(args.warmup_batch, args.max_batch))
+        STARTUP.mark("warmed")
     listener = None
     if args.profiler_port:
         from ..serve.profiler import ProfilerListener
@@ -281,6 +315,7 @@ def _serve(args, mesh, registry, controller):
     try:
         # inside the try: a SIGINT that lands in the ready line's write still
         # closes the server and exits 0
+        STARTUP.mark("ready")
         print(
             f"tpusimilarity ready on {args.hostname}:{server.port} "
             f"({', '.join(registry.names())}; {mesh.n_shards} shards, "

@@ -40,6 +40,7 @@ from ..ops.scan import TANIMOTO, popcount_rows_np, scores_np
 from ..parallel import sharded
 from ..parallel import multihost
 from ..parallel.mesh import Mesh, resolve_mesh
+from ..serve import spans
 from ..utils import native, synth
 from ..utils.fsim import FingerprintData
 from ..utils.strings import mmap_backing
@@ -462,7 +463,12 @@ class FingerprintDB:
     ) -> list[SearchResult]:
         """Search a ``(B, W)`` batch of full-width packed queries in one
         device pass; ``k`` and ``cutoff`` may be scalars or per-query
-        sequences. The queries are folded like the store."""
+        sequences. The queries are folded like the store. Inside a served
+        pass (:func:`~..serve.spans.current_pass`) its stages are timed:
+        prepare, launch and wait (in the sharded search), assemble,
+        strings."""
+        span = spans.current_pass()
+        t = spans.now()
         queries = np.asarray(queries, dtype=np.uint32)
         if queries.ndim != 2 or queries.shape[1] != self.word_count:
             raise ValueError(
@@ -472,6 +478,7 @@ class FingerprintDB:
         ks = np.broadcast_to(np.asarray(k, dtype=np.int64), (b,))
         cutoffs = np.broadcast_to(np.asarray(cutoff, dtype=np.float32), (b,))
         if dbkey != self.dbkey or self.count == 0:
+            span.stage(spans.PREPARE, t)
             return [SearchResult() for _ in range(b)]
 
         ks = np.minimum(ks, self.count)
@@ -484,10 +491,13 @@ class FingerprintDB:
             query_arg = folded.view(np.int32)
         else:
             query_arg, _bucket = query_plane_indices(folded, self.device_bitcount)
+        query_pops = popcount_rows_np(folded)
+        span.stage(spans.PREPARE, t)
         vals, idx, counts = sharded.sharded_local_topk(
-            self._store, query_arg, popcount_rows_np(folded),
+            self._store, query_arg, query_pops,
             np.array(cutoffs), k_fetch, similarity, alpha, beta,
         )
+        t = spans.now()
         vals, idx = vals.numpy(), idx.numpy()
         # per-shard counts (S, B), summed in int64
         approx = counts.to(torch.int64).sum(dim=0).numpy()
@@ -499,8 +509,10 @@ class FingerprintDB:
             )
             for qi in range(b)
         ]
+        t = span.stage(spans.ASSEMBLE, t)
         # the whole batch's strings at once: one collective when host-sharded
         smiles_b, ids_b = self._lookup_strings_batch([i for _, i in selected])
+        span.stage(spans.STRINGS, t)
         results = []
         for qi, (svals, sidx) in enumerate(selected):
             result = SearchResult(

@@ -8,6 +8,9 @@ duplicate SMILES and joining their IDs with ``";:;"`` (reference
 ``gpusim.cpp:87-166, 306-374``). In a multi-process job process 0's
 searches go through a :class:`~..parallel.multihost.MultihostController`,
 which runs :meth:`DatabaseRegistry._execute_batch` on every process.
+Each batched pass is a :class:`~..serve.spans.PassSpan` whose stages add
+into the registry's :attr:`~DatabaseRegistry.counters`, served in
+:meth:`~DatabaseRegistry.stats` beside the pass counts.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from ..ops.scan import TANIMOTO
 from ..parallel import multihost
 from ..parallel.mesh import Mesh, auto_fold_factor, resolve_mesh
+from ..serve import spans
 from ..utils.fsim import FingerprintData
 from ..utils.tfsim import load_any
 from .fingerprint_db import FingerprintDB
@@ -72,6 +76,8 @@ class DatabaseRegistry:
         self.batch_count = 0
         self.total_search_seconds = 0.0
         self._stats_lock = threading.Lock()
+        # the served path's spans, by name (serve/spans.py)
+        self.counters = spans.Counters()
         # set on process 0 of a multi-process job: fans each search out to
         # every process (parallel.multihost.MultihostController)
         self.multihost_controller = None
@@ -87,6 +93,7 @@ class DatabaseRegistry:
         popless: bool = False,
         mesh: Mesh | None = None,
         async_prewarm: bool = False,
+        on_loaded=None,
     ) -> "DatabaseRegistry":
         """Load ``.fsim`` files or ``.tfsim`` directories; database names
         are file basenames (reference ``gpusim.cpp:114-116``).
@@ -100,7 +107,8 @@ class DatabaseRegistry:
         ``async_prewarm=True`` (the one-process server) marks each database
         ready once it is uploaded and warms its memory-mapped pages on a
         background thread (``FingerprintDB.upload``); a multi-process job
-        always warms before it returns."""
+        always warms before it returns. ``on_loaded()``, if given, is called
+        once every library is loaded, before the first upload."""
         reg = cls(device=device, mesh=mesh)
         datas: list[tuple[str, FingerprintData]] = []
         for p in paths:
@@ -116,6 +124,8 @@ class DatabaseRegistry:
                 time.monotonic() - t0,
             )
             datas.append((name, data))
+        if on_loaded is not None:
+            on_loaded()
 
         fold = fold_factor if fold_factor is not None else cls._global_fold(
             datas, device_bitcount, reg.mesh
@@ -213,6 +223,7 @@ class DatabaseRegistry:
         with self._stats_lock:
             searches, batches = self.search_count, self.batch_count
             seconds = self.total_search_seconds
+        served = self.counters.stats(seconds)
         return {
             "databases": {
                 name: {
@@ -236,6 +247,7 @@ class DatabaseRegistry:
                 "bitplane_phase1": bitplane_phase1.launch_count(),
                 "dense_phase1": dense_phase1.launch_count(),
             },
+            **served,
         }
 
     # ----------------------------------------------------------------- search
@@ -275,7 +287,7 @@ class DatabaseRegistry:
             # a key mismatch takes the engine's empty-result path on every
             # process alike (no kernel runs)
             key = db.dbkey if ok else db.dbkey + "\x00mismatch"
-            with torch.profiler.record_function(f"tpusim.search.{name}"):
+            with spans.profiler_span(f"tpusim.search.{name}"):
                 per_db.append(
                     db.search_batch(
                         queries, k=list(ks), cutoff=list(cutoffs), dbkey=key,
@@ -294,37 +306,44 @@ class DatabaseRegistry:
         similarity: str = TANIMOTO,
         alpha: float = 1.0,
         beta: float = 1.0,
+        pass_span: spans.PassSpan | None = None,
     ) -> list[SearchResult]:
         """One device pass per database for the whole ``(B, W)`` batch,
         then a per-query cross-database merge. With a
-        :attr:`multihost_controller` the pass runs on every process."""
-        t0 = time.monotonic()
+        :attr:`multihost_controller` the pass runs on every process. The
+        pass is ``pass_span`` (a new one by default): its time counts in
+        ``total_search_seconds`` and its stages in :attr:`counters`."""
+        pass_span = pass_span or spans.PassSpan()
         b = len(queries)
-        for name in dbnames:
-            if name not in self._dbs:
-                raise KeyError(f"unknown database {name!r}")
-        key_oks = [
-            key == self._dbs[name].dbkey for name, key in zip(dbnames, dbkeys)
-        ]
-        if self.multihost_controller is not None:
-            per_db = self.multihost_controller.dispatch_batch(
-                list(dbnames), key_oks, queries, list(ks), list(cutoffs),
-                similarity, alpha, beta,
-            )
-        else:
-            per_db = self._execute_batch(
-                dbnames, key_oks, queries, ks, cutoffs, similarity, alpha, beta
-            )
-        merged = [
-            merge_results([db_results[qi] for db_results in per_db], int(ks[qi]))
-            for qi in range(b)
-        ]
-        elapsed = time.monotonic() - t0
+        with pass_span:
+            for name in dbnames:
+                if name not in self._dbs:
+                    raise KeyError(f"unknown database {name!r}")
+            key_oks = [
+                key == self._dbs[name].dbkey for name, key in zip(dbnames, dbkeys)
+            ]
+            if self.multihost_controller is not None:
+                per_db = self.multihost_controller.dispatch_batch(
+                    list(dbnames), key_oks, queries, list(ks), list(cutoffs),
+                    similarity, alpha, beta,
+                )
+            else:
+                per_db = self._execute_batch(
+                    dbnames, key_oks, queries, ks, cutoffs, similarity, alpha, beta
+                )
+            t = spans.now()
+            merged = [
+                merge_results([db_results[qi] for db_results in per_db], int(ks[qi]))
+                for qi in range(b)
+            ]
+            pass_span.stage(spans.MERGE, t)
+        elapsed = (pass_span.end - pass_span.start) / 1e9
         with self._stats_lock:
             self.search_count += b
             self.batch_count += 1
             self.total_search_seconds += elapsed
-        log.info(
+        pass_span.count(self.counters)
+        log.debug(
             "batched search over %s: %d queries, %.1f ms",
             list(dbnames), b, elapsed * 1e3,
         )

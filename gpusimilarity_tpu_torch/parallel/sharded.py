@@ -585,9 +585,15 @@ def sharded_local_topk(
     (:func:`~.multihost.gather_shard_candidates`) and merged
     (:func:`~..ops.topk.merge_topk`). The counts travel un-summed, one row
     per shard: the caller sums them in int64 (an int32 sum overflows past
-    2.1B rows).
+    2.1B rows). Inside a served pass the time until every device's work is
+    queued is its stage ``launch``, and from then until the last copy back
+    is done its stage ``wait`` (:mod:`~..serve.spans`).
     """
+    from ..serve import spans
     from . import multihost
+
+    span = spans.current_pass()
+    start = spans.now()
 
     mesh = store.mesh
     b = queries.shape[0]
@@ -609,16 +615,23 @@ def sharded_local_topk(
             parts.append((v, _global_rows(v, i, store.row0s[j]), c))
         # one copy to the host per device, after every shard is queued: the
         # host launches a shard's ops while the card runs the last's
-        v, i, c = (torch.stack([p[f] for p in parts]).cpu() for f in range(3))
-        return {j: (v[n], i[n], c[n]) for n, j in enumerate(by_device[dev])}
+        stacked = [torch.stack([p[f] for p in parts]) for f in range(3)]
+        queued = spans.now()
+        v, i, c = (t.cpu() for t in stacked)
+        return {j: (v[n], i[n], c[n]) for n, j in enumerate(by_device[dev])}, queued
 
     def run_all():
         if len(by_device) == 1:
-            return search(mesh.devices[0])
-        done: dict[int, tuple] = {}
-        with ThreadPoolExecutor(len(by_device)) as pool:
-            for part in pool.map(search, by_device):
-                done.update(part)
+            done, queued = search(mesh.devices[0])
+        else:
+            done, queued = {}, []
+            with ThreadPoolExecutor(len(by_device)) as pool:
+                for part, at in pool.map(search, by_device):
+                    done.update(part)
+                    queued.append(at)
+            queued = max(queued)
+        span.stage(spans.LAUNCH, start, queued)
+        span.stage(spans.PASS_WAIT, queued)
         return done
 
     try:

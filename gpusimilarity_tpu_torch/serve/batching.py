@@ -6,12 +6,18 @@ set and scoring mode become one ``(B, P)`` search — one phase-1 kernel
 launch per database — instead of B launches. Other groups run on a small
 thread pool within the same drain cycle; PyTorch launches from several
 threads are safe and the card serialises them on its stream.
+
+Each caller's request carries a :class:`~.spans.Request`: the batcher's
+drain stamps it, the pass that answers it (a :class:`~.spans.PassSpan`)
+gives it its pass id, and the caller counts its parse and its wait in the
+registry's counters (:mod:`.spans`).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -20,6 +26,7 @@ import numpy as np
 from ..models.registry import DatabaseRegistry
 from ..models.results import SearchResult
 from ..ops.scan import TANIMOTO
+from . import spans
 
 # how long a caller waits for its result: PyTorch compiles nothing at run
 # time, so this covers a full-library search behind a queue of others
@@ -36,7 +43,9 @@ class _Pending:
     similarity: str
     alpha: float
     beta: float
+    request: spans.Request
     future: Future = field(default_factory=Future)
+    pass_span: spans.PassSpan | None = None
 
     def group_key(self):
         return (self.dbnames, self.dbkeys, self.similarity, self.alpha, self.beta)
@@ -83,10 +92,14 @@ class BatchingSearcher:
         alpha: float = 1.0,
         beta: float = 1.0,
         timeout: float | None = None,  # None -> the searcher's default
+        request: spans.Request | None = None,
     ) -> SearchResult:
-        """Blocking search; may share a device pass with concurrent callers."""
+        """Blocking search; may share a device pass with concurrent callers.
+        ``request`` is the front end's, stamped since the request arrived;
+        without one the request starts here."""
         if timeout is None:
             timeout = self._result_timeout_s
+        request = request or spans.Request()
         item = _Pending(
             dbnames=tuple(dbnames),
             dbkeys=tuple(dbkeys),
@@ -96,9 +109,13 @@ class BatchingSearcher:
             similarity=similarity,
             alpha=float(alpha),
             beta=float(beta),
+            request=request,
         )
+        request.enqueued = spans.now()
         self._queue.put(item)
-        return item.future.result(timeout=timeout)
+        result = item.future.result(timeout=timeout)
+        spans.served(self._registry.counters, request, item.pass_span)
+        return result
 
     def close(self):
         self._stop.set()
@@ -112,9 +129,8 @@ class BatchingSearcher:
         first = self._queue.get()
         if first is None:
             return []
+        opened = spans.now()
         batch = [first]
-        import time
-
         deadline = time.monotonic() + self._window_s
         while len(batch) < self._max_batch:
             remaining = deadline - time.monotonic()
@@ -127,6 +143,11 @@ class BatchingSearcher:
             if item is None:
                 break
             batch.append(item)
+        closed = spans.now()
+        for item in batch:
+            item.request.drained = closed
+        spans.record(self._registry.counters, spans.WINDOW, opened, closed,
+                     threading.get_native_id())
         return batch
 
     def _run(self):
@@ -159,6 +180,9 @@ class BatchingSearcher:
 
     def _run_group(self, key, items):
         dbnames, dbkeys, similarity, alpha, beta = key
+        pass_span = spans.PassSpan()
+        for it in items:
+            it.pass_span = pass_span
         try:
             queries = np.stack([it.query for it in items])
             results = self._registry.search_databases_batch(
@@ -170,6 +194,7 @@ class BatchingSearcher:
                 similarity=similarity,
                 alpha=alpha,
                 beta=beta,
+                pass_span=pass_span,
             )
             for it, r in zip(items, results):
                 it.future.set_result(r)

@@ -25,7 +25,31 @@ as ``<trace_dir>/tpusim-p<process>-<UTC stamp>.pt.trace.json`` (Perfetto or
 A bad ``duration_ms`` gets 400; a capture asked for while one runs gets 409
 (the process holds one profiler); a profiler that fails to start or stop
 gets 500 with its error. ``GET /status`` answers ``{"capturing": bool}``.
-While no capture runs the listener costs a search nothing.
+
+The served path's own spans (:mod:`.spans`: each request's parse, batch
+wait and reply, each pass's stages) are kept, while a listener exists, in a
+bounded ring. ``GET /spans?since=<seq>`` answers the records numbered above
+``seq``::
+
+    {"records": [{"seq", "name", "start_ns", "end_ns", "tid", "request",
+                  "pass", "parent"}, ...],
+     "last": the newest number, "capacity": the ring's bound,
+     "now_ns": this process's monotonic clock, "clock": the last capture's
+     mapping (null before one)}
+
+The clock is ``time.monotonic_ns``; a capture enters a ``tpusim.clock``
+marker under the profiler at each end of its window, and ``clock`` holds
+the two ``[monotonic_ns, trace_us]`` pairs (their difference shows the
+drift). An exported trace gets the records that lie wholly inside its
+window as ``user_annotation`` events, on that mapping, on the threads that
+ran them, with ``args`` ``{request, pass, parent, seq}``. The reply reports
+them as ``merged_spans``.
+
+Two things keep a capture's cost out of the rest of the time: the listener
+runs one short window of its own at start-up, which writes nothing, so the
+profiler's device tracing starts before the server serves; and the
+``tpusim.request`` and ``tpusim.search.<name>`` spans are entered only
+while a window is open (:func:`.spans.profiler_span`).
 """
 
 from __future__ import annotations
@@ -44,6 +68,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
 import torch
+
+from . import spans
 
 log = logging.getLogger("tpusimilarity")
 
@@ -90,8 +116,10 @@ def trace_counts(events) -> dict:
 class ProfilerListener:
     """An HTTP listener on ``hostname:port`` (0 picks a free port; see
     :attr:`port`) that captures ``torch.profiler`` traces of this process
-    into ``trace_dir``, with CUDA activity when ``cuda`` is true. Binding
-    failures raise here; :meth:`close` stops it."""
+    into ``trace_dir``, with CUDA activity when ``cuda`` is true, and serves
+    the span ring. It primes the profiler before it listens
+    (:attr:`primed_s`). Binding failures raise here; :meth:`close` stops
+    it."""
 
     def __init__(self, hostname: str, port: int, trace_dir, cuda: bool,
                  process_index: int = 0):
@@ -103,14 +131,38 @@ class ProfilerListener:
         self.activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if cuda else [])
         self.process_index = process_index
+        self.clock: dict | None = None
         self._busy = threading.Lock()
         self._stop = threading.Event()
         self.capturing = threading.Event()
+        self.primed_s = self._prime()
         self._httpd = ThreadingHTTPServer((hostname, port), _handler(self))
         self.port = self._httpd.server_address[1]
+        spans.TRACE.attach()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="tpusim-profiler", daemon=True)
         self._thread.start()
+
+    def _prime(self) -> float:
+        """One empty window, exported nowhere: the profiler's device
+        tracing (CUPTI) starts in it, which stalls the process for seconds
+        on a card, so that no capture of a serving process pays it."""
+        t0 = time.monotonic()
+        with torch.profiler.profile(activities=self.activities,
+                                    experimental_config=_all_threads_config()):
+            pass
+        primed = time.monotonic() - t0
+        log.info("profiler primed in %.2fs", primed)
+        return primed
+
+    @staticmethod
+    def _clock_mark() -> int:
+        """Enter a ``tpusim.clock`` span under the profiler; returns the
+        monotonic ns read just before it ends. The span's end is stamped
+        at once on its exit, while its entry may take the profiler a
+        millisecond, so the end is the pair's trace time."""
+        with torch.profiler.record_function(spans.CLOCK_SPAN):
+            return time.monotonic_ns()
 
     def capture(self, duration_ms: int) -> dict:
         """One window of ``duration_ms`` (cut short by :meth:`close`),
@@ -124,27 +176,73 @@ class ProfilerListener:
                 activities=self.activities,
                 experimental_config=_all_threads_config())
             with prof:
+                marks = [self._clock_mark()]
+                spans.TRACE.window_open = True
                 self.capturing.set()
                 start = time.time()
                 self._stop.wait(duration_ms / 1e3)
                 stop = time.time()
+                spans.TRACE.window_open = False
+                marks.append(self._clock_mark())
             self.capturing.clear()
             stamp = datetime.now(timezone.utc).strftime("%Y%m%dT%H%M%S.%fZ")
             path = self.trace_dir / f"tpusim-p{self.process_index}-{stamp}.pt.trace.json"
             prof.export_chrome_trace(str(path))
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
+            events, merged = self._merge_spans(path, marks)
             reply = {"trace": str(path), "duration_ms": duration_ms,
                      **trace_counts(events), "bytes": path.stat().st_size,
                      "window": [start, stop],
-                     "listener_tid": threading.get_native_id()}
+                     "listener_tid": threading.get_native_id(),
+                     "merged_spans": merged, "clock": self.clock}
             log.info("profiler: %s (%d events, %d threads, spans %s, %d device "
                      "kernels, %d bytes)", path, reply["events"], reply["threads"],
                      reply["spans"], reply["device_kernels"], reply["bytes"])
             return reply
         finally:
+            spans.TRACE.window_open = False
             self.capturing.clear()
             self._busy.release()
+
+    def _merge_spans(self, path: Path, marks: list[int]) -> tuple[list, int]:
+        """Map this process's clock onto the trace's by the two
+        ``tpusim.clock`` markers of this thread, and add the ring's records
+        inside the window to the trace as events; returns the trace's
+        events and how many were added. The events go in as text after the
+        list's opening, so the trace is not serialised again (seconds for
+        a large one, the interpreter held all the while)."""
+        text = path.read_text()
+        doc = json.loads(text)
+        tid = threading.get_native_id()
+        found = sorted((e for e in doc["traceEvents"]
+                        if e.get("name") == spans.CLOCK_SPAN and e.get("tid") == tid
+                        and e.get("ph") == "X"), key=lambda e: e["ts"])
+        if len(found) != 2:
+            log.warning("profiler: %d clock markers in the trace, not 2; no "
+                        "spans merged", len(found))
+            return doc["traceEvents"], 0
+        pairs = [[m, float(e["ts"]) + float(e["dur"])] for m, e in zip(marks, found)]
+        self.clock = {"trace": str(path), "marks": pairs}
+        events = spans.chrome_events(spans.TRACE.records(), pairs, found[0]["pid"])
+        if events:
+            opening = '"traceEvents": ['
+            at = text.find(opening)
+            doc["traceEvents"].extend(events)
+            if at < 0:
+                path.write_text(json.dumps(doc))
+            else:
+                # the list holds the markers: each event goes first, a comma after
+                at += len(opening)
+                path.write_text(text[:at] + "".join(json.dumps(e) + "," for e in events)
+                                + text[at:])
+        return doc["traceEvents"], len(events)
+
+    def spans_since(self, since: int) -> dict:
+        """``GET /spans``'s answer: the ring's records numbered above
+        ``since``."""
+        return {"records": [dict(zip(spans.RECORD_FIELDS, r))
+                            for r in spans.TRACE.records(since)],
+                "last": spans.TRACE.last_seq(), "capacity": spans.RING_CAPACITY,
+                "now_ns": time.monotonic_ns(), "clock": self.clock}
 
     def close(self) -> None:
         """Stop listening; a capture in flight ends at once and still
@@ -155,6 +253,7 @@ class ProfilerListener:
         self._thread.join(timeout=5)
         if self._busy.acquire(timeout=CLOSE_TIMEOUT_S):
             self._busy.release()
+        spans.TRACE.detach()
 
 
 def _handler(listener: ProfilerListener):
@@ -162,7 +261,8 @@ def _handler(listener: ProfilerListener):
         protocol_version = "HTTP/1.1"
 
         def log_message(self, fmt, *args):
-            if not self.path.startswith("/status"):  # polled by start_capture
+            # /status is polled by start_capture, /spans by an operator
+            if not self.path.startswith(("/status", "/spans")):
                 log.info("profiler %s - %s", self.address_string(), fmt % args)
 
         def _send_json(self, code: int, payload: dict):
@@ -175,13 +275,23 @@ def _handler(listener: ProfilerListener):
 
         def do_GET(self):
             url = urllib.parse.urlsplit(self.path)
+            query = urllib.parse.parse_qs(url.query)
             if url.path == "/status":
                 self._send_json(200, {"capturing": listener.capturing.is_set()})
+                return
+            if url.path == "/spans":
+                raw = query.get("since", ["0"])[0]
+                try:
+                    since = int(raw)
+                except ValueError:
+                    self._send_json(400, {"error": f"since must be an integer, "
+                                          f"got {raw!r}"})
+                    return
+                self._send_json(200, listener.spans_since(since))
                 return
             if url.path != "/capture":
                 self._send_json(404, {"error": "not found"})
                 return
-            query = urllib.parse.parse_qs(url.query)
             raw = query.get("duration_ms", [str(DEFAULT_DURATION_MS)])[0]
             try:
                 duration_ms = int(raw)

@@ -17,8 +17,10 @@
 
 HTTP and socket handler threads only enqueue on one
 :class:`BatchingSearcher`, which runs every search on the device. Each HTTP
-POST runs inside a ``tpusim.request`` profiler span, so a trace
-(:mod:`.profiler`) shows what a request spends around its search pass.
+POST is a :class:`~.spans.Request` whose parse, batch wait and reply add
+into the registry's counters (``/stats``); while a capture's window is open
+(:mod:`.profiler`) it also runs inside a ``tpusim.request`` profiler span,
+so a trace shows what a request spends around its search pass.
 """
 
 from __future__ import annotations
@@ -34,8 +36,6 @@ from email.policy import HTTP as HTTP_POLICY
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
-import torch
-
 from ..models.registry import DatabaseRegistry
 from ..ops.scan import TANIMOTO, TVERSKY
 from ..utils.fingerprints import (
@@ -46,6 +46,7 @@ from ..utils.fingerprints import (
     generator_tag,
     smiles_to_query_words,
 )
+from . import spans
 from .batching import DEFAULT_RESULT_TIMEOUT_S, BatchingSearcher
 from .profiler import REQUEST_SPAN
 
@@ -116,7 +117,8 @@ class SearchService:
             return names
         return raw.split(",")
 
-    def handle_search(self, form: dict[str, str], url_db: str | None = None) -> dict:
+    def handle_search(self, form: dict[str, str], url_db: str | None = None,
+                      request: spans.Request | None = None) -> dict:
         dbnames = self.resolve_dbnames(form, url_db)
         dbkeys = form.get("dbkeys", "")
         dbkeys = dbkeys.split(",") if dbkeys else [""] * len(dbnames)
@@ -186,7 +188,7 @@ class SearchService:
 
         result = self.searcher.search(
             dbnames, dbkeys, query, k=k, cutoff=cutoff,
-            similarity=similarity, alpha=alpha, beta=beta,
+            similarity=similarity, alpha=alpha, beta=beta, request=request,
         )
         return {
             "approximate_count": result.approximate_count,
@@ -301,10 +303,12 @@ def make_handler(service: SearchService, debug_ui: bool = False):
                 self._send_json(404, {"error": "not found"})
 
         def do_POST(self):
-            with torch.profiler.record_function(REQUEST_SPAN):
-                self._post()
+            with spans.profiler_span(REQUEST_SPAN):
+                request = spans.Request()
+                self._post(request)
+                spans.replied(service.registry.counters, request)
 
-        def _post(self):
+        def _post(self, request):
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 body = self.rfile.read(length)
@@ -314,9 +318,9 @@ def make_handler(service: SearchService, debug_ui: bool = False):
                         self.path[len("/similarity_search_json"):].lstrip("_")
                         or None
                     )
-                    self._send_json(200, service.handle_search(form, url_db))
+                    self._send_json(200, service.handle_search(form, url_db, request))
                 elif debug_ui and self.path.startswith("/similarity_search"):
-                    payload = service.handle_search(form, None)
+                    payload = service.handle_search(form, None, request)
                     self._send(200, "text/html",
                                service.results_html(payload).encode())
                 else:

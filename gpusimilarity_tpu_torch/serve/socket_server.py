@@ -26,7 +26,9 @@ response::
 One connection carries sequential requests (the reference serializes on the
 client side); each connection gets its own handler thread here, and searches
 still flow through the batching engine: a handler thread only enqueues its
-request on the :class:`BatchingSearcher`, which runs the device work.
+request on the :class:`BatchingSearcher`, which runs the device work. Each
+request is a :class:`~.spans.Request` from its parse to its reply's last
+byte, counted as an HTTP request is.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..utils.qtstream import (
     QtStreamReader,
     QtStreamWriter,
 )
+from . import spans
 from .batching import BatchingSearcher
 
 log = logging.getLogger("tpusimilarity.socket")
@@ -127,6 +130,7 @@ class SocketProtocolServer:
             def handle(self):
                 buf = b""
                 while True:
+                    start = spans.now()
                     try:
                         req, used = parse_request(buf)
                     except QtStreamCorruptError as e:
@@ -150,7 +154,7 @@ class SocketProtocolServer:
                         log.warning("malformed socket request: %s", e)
                         return
                     buf = buf[used:]
-                    outer._serve_one(self.request, req)
+                    outer._serve_one(self.request, req, spans.Request(start))
 
         class Server(socketserver.ThreadingMixIn, socketserver.UnixStreamServer):
             daemon_threads = True
@@ -158,7 +162,7 @@ class SocketProtocolServer:
         self.server = Server(self.path, Handler)
         self._thread: threading.Thread | None = None
 
-    def _serve_one(self, conn, req):
+    def _serve_one(self, conn, req, request: spans.Request):
         query = np.frombuffer(req["fingerprint"], dtype=np.uint8)
         try:
             query_words = query.view(np.uint32)
@@ -168,11 +172,13 @@ class SocketProtocolServer:
                 query_words,
                 k=req["return_count"],
                 cutoff=req["cutoff"],
+                request=request,
             )
         except Exception:
             log.exception("socket search failed")
             result = SearchResult()
         conn.sendall(serialize_response(req["request_num"], result))
+        spans.replied(self.searcher.registry.counters, request)
 
     def start_background(self):
         self._thread = threading.Thread(
