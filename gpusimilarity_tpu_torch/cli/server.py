@@ -128,7 +128,10 @@ def parse_args(argv=None):
     parser.add_argument("--max_batch", default=64, type=int,
                         help="max queries coalesced into one kernel launch")
     parser.add_argument("--batch_window_ms", default=2.0, type=float,
-                        help="batching window in milliseconds")
+                        help="how long, in milliseconds, the batcher gathers "
+                        "requests while a pass is in flight on the card or "
+                        "after a pass of several; with none in flight after a "
+                        "pass of one, a request's pass starts at once")
     parser.add_argument(
         "--search_timeout_s", default=DEFAULT_RESULT_TIMEOUT_S, type=float,
         help="per-request result deadline in seconds",

@@ -1,9 +1,16 @@
 """Query batching: coalesce concurrent requests into one kernel launch
-(twin of ``gpusimilarity_tpu/serve/batching.py``).
+(after ``gpusimilarity_tpu/serve/batching.py``, whose window always runs).
 
-Concurrent requests within a small window that target the same database
-set and scoring mode become one ``(B, P)`` search — one phase-1 kernel
-launch per database — instead of B launches. Other groups run on a small
+Concurrent requests that target the same database set and scoring mode
+become one ``(B, P)`` search — one phase-1 kernel launch per database —
+instead of B launches. When the batcher's drain wakes with no pass in
+flight and the last pass answered a single caller, no other caller is
+about to send, so it closes at once with the request that woke it and
+whatever already sits in the queue (its passes are *idle passes*,
+counted as ``idle_passes``). Otherwise it gathers for ``window_ms``
+first: requests that arrive while the card is busy share the next pass,
+and so do the callers of a pass of several, who send again together
+(a closed loop of clients). Groups run on a small
 thread pool within the same drain cycle; PyTorch launches from several
 threads are safe and the card serialises them on its stream.
 
@@ -52,7 +59,9 @@ class _Pending:
 
 
 class BatchingSearcher:
-    """Thread-safe search front end that batches concurrent callers."""
+    """Thread-safe search front end that batches concurrent callers.
+    ``window_ms`` is how long a drain gathers while a pass is in flight,
+    or after a pass that answered several callers."""
 
     def __init__(
         self,
@@ -67,6 +76,12 @@ class BatchingSearcher:
         self._result_timeout_s = result_timeout_s
         self._queue: queue.Queue = queue.Queue()
         self._stop = threading.Event()
+        # passes submitted whose results are not handed back yet, and the
+        # requests of the last to end: a drain that finds none in flight
+        # after a pass of one closes at once
+        self._in_flight = 0
+        self._last_pass_requests = 1
+        self._in_flight_lock = threading.Lock()
         # groups run on a small pool, not inline in the drain loop, so one
         # slow group does not stall the others and all new arrivals
         self._pool = ThreadPoolExecutor(
@@ -125,19 +140,28 @@ class BatchingSearcher:
 
     # ------------------------------------------------------------- internals
 
-    def _drain_batch(self) -> list[_Pending]:
+    def _drain_batch(self) -> tuple[list[_Pending], bool]:
+        """The next batch, and whether it was drained at once, without the
+        window (no pass in flight, and the last answered one caller)."""
         first = self._queue.get()
         if first is None:
-            return []
+            return [], False
         opened = spans.now()
         batch = [first]
-        deadline = time.monotonic() + self._window_s
+        # only this thread submits passes, so the count can fall but not
+        # rise before this drain's own are submitted
+        with self._in_flight_lock:
+            idle = self._in_flight == 0 and self._last_pass_requests == 1
+        deadline = None if idle else time.monotonic() + self._window_s
         while len(batch) < self._max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
             try:
-                item = self._queue.get(timeout=remaining)
+                if deadline is None:  # idle: only what is already queued
+                    item = self._queue.get_nowait()
+                else:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    item = self._queue.get(timeout=remaining)
             except queue.Empty:
                 break
             if item is None:
@@ -148,24 +172,26 @@ class BatchingSearcher:
             item.request.drained = closed
         spans.record(self._registry.counters, spans.WINDOW, opened, closed,
                      threading.get_native_id())
-        return batch
+        return batch, idle
 
     def _run(self):
         while not self._stop.is_set():
-            batch = self._drain_batch()
+            batch, idle = self._drain_batch()
             if not batch:
                 continue
             groups: dict[tuple, list[_Pending]] = {}
             for item in batch:
                 groups.setdefault(item.group_key(), []).append(item)
             for key, items in groups.items():
+                with self._in_flight_lock:
+                    self._in_flight += 1
                 try:
-                    self._pool.submit(self._run_group, key, items)
+                    self._pool.submit(self._run_group, key, items, idle)
                 except RuntimeError:
                     # pool already shut down (close() raced a slow drain):
                     # run inline so no caller's future hangs for its full
                     # result() timeout
-                    self._run_group(key, items)
+                    self._run_group(key, items, idle)
         # resolve anything still queued at shutdown instead of leaving the
         # callers blocked in future.result()
         while True:
@@ -178,11 +204,12 @@ class BatchingSearcher:
                     RuntimeError("server shutting down")
                 )
 
-    def _run_group(self, key, items):
+    def _run_group(self, key, items, idle):
         dbnames, dbkeys, similarity, alpha, beta = key
-        pass_span = spans.PassSpan()
+        pass_span = spans.PassSpan(idle)
         for it in items:
             it.pass_span = pass_span
+        failure = None
         try:
             queries = np.stack([it.query for it in items])
             results = self._registry.search_databases_batch(
@@ -196,9 +223,17 @@ class BatchingSearcher:
                 beta=beta,
                 pass_span=pass_span,
             )
-            for it, r in zip(items, results):
-                it.future.set_result(r)
-        except Exception as e:  # deliver the failure to every caller
+        except Exception as e:  # delivered to every caller below
+            failure = e
+        finally:
+            # before any caller wakes: a closed-loop caller's next request
+            # must not find its own finished pass still in flight
+            with self._in_flight_lock:
+                self._in_flight -= 1
+                self._last_pass_requests = len(items)
+        if failure is not None:
             for it in items:
-                if not it.future.done():
-                    it.future.set_exception(e)
+                it.future.set_exception(failure)
+            return
+        for it, r in zip(items, results):
+            it.future.set_result(r)

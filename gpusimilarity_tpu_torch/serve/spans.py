@@ -63,8 +63,10 @@ REPLY = "tpusim.front.reply"
 SPANS = (PARSE, WINDOW, WAIT, PREPARE, LAUNCH, PASS_WAIT, ASSEMBLE, STRINGS,
          MERGE, REPLY)
 # counted, never kept as records: the two parts of a request's wait, a
-# pass's time outside its named stages, and the requests answered
+# pass's time outside its named stages, the requests answered, and the
+# passes the batcher started at once, no pass being in flight
 WINDOW_PART, POOL_PART, OTHER, REQUESTS = "window_part", "pool_part", "other", "requests"
+IDLE_PASSES = "idle_passes"
 STAGES = SPANS + (WINDOW_PART, POOL_PART, OTHER)
 # the listener's marker at a capture's two ends: maps this clock onto the
 # trace's
@@ -120,10 +122,11 @@ class Counters:
         return out
 
     def stats(self, total_search_seconds: float) -> dict:
-        """The ``/stats`` keys of these counters: ``requests``, the seconds
-        of the front end (parse and reply), the batch wait, the passes'
-        copy-back wait and host time (``total_search_seconds`` less that
-        wait), each stage's seconds, and :data:`STARTUP`'s steps."""
+        """The ``/stats`` keys of these counters: ``requests``,
+        ``idle_passes``, the seconds of the front end (parse and reply),
+        the batch wait, the passes' copy-back wait and host time
+        (``total_search_seconds`` less that wait), each stage's seconds,
+        and :data:`STARTUP`'s steps."""
         spent = self.totals()
 
         def seconds(ns):
@@ -132,6 +135,7 @@ class Counters:
         pass_wait = seconds(spent[PASS_WAIT])
         return {
             "requests": spent[REQUESTS],
+            "idle_passes": spent[IDLE_PASSES],
             "front_end_seconds": seconds(spent[PARSE] + spent[REPLY]),
             "queue_wait_seconds": seconds(spent[WAIT]),
             "pass_wait_seconds": pass_wait,
@@ -249,12 +253,14 @@ _local = threading.local()
 class PassSpan:
     """One batched pass over the databases (the registry's
     ``search_databases_batch``): entered, it is the calling thread's
-    :func:`current_pass`, into which the engine's stages record."""
+    :func:`current_pass`, into which the engine's stages record. ``idle``:
+    the batcher started it at once, no pass being in flight."""
 
-    __slots__ = ("id", "tid", "start", "end", "spent", "_outer")
+    __slots__ = ("id", "tid", "start", "end", "spent", "idle", "_outer")
 
-    def __init__(self):
+    def __init__(self, idle: bool = False):
         self.id = next_id()
+        self.idle = idle
         self.start = self.end = None
         self.spent: dict[str, int] = {}
 
@@ -279,11 +285,15 @@ class PassSpan:
         return end
 
     def count(self, counters: Counters) -> None:
-        """Add this ended pass's stages to ``counters``, and the rest of
-        its time as ``other``."""
+        """Add this ended pass's stages to ``counters``, the rest of its
+        time as ``other``, and the pass to ``idle_passes`` if idle (here,
+        where the registry counts it in ``batches``, and not when its
+        drain closed: the two counts then move together)."""
         for name, ns in self.spent.items():
             counters.add(name, ns)
         counters.add(OTHER, self.end - self.start - sum(self.spent.values()))
+        if self.idle:
+            counters.add(IDLE_PASSES, 1)
 
 
 class _NoPass:

@@ -11,12 +11,19 @@ Pinned here:
 * the links: each request records the pass that held its query, and a
   request queued behind another caller's pass counts that time as its wait
   (its pool part), not as its pass;
+* the idle pass: with no pass in flight after a pass of one, a drain
+  closes at once, with what is already queued, and its passes count in
+  ``idle_passes``; requests that arrive while a pass is in flight still
+  share one pass after the window, and so do the callers of a closed loop,
+  who come back together from a pass of several; a failed pass leaves
+  nothing in flight;
 * ``GET /spans``: its shape, ``since``, the ring's bound;
 * the shared clock: in a capture, each merged span lies inside its
   ``tpusim.request`` or ``tpusim.search.<name>`` event, within 200 us at
   either end, and a request's parse-to-reply time nearly fills that event;
   the capture still holds one ``tpusim.request`` per POST and one
-  ``tpusim.search.lib`` per pass;
+  ``tpusim.search.lib`` per pass; a clock marker whose exit another thread
+  delays is entered again, and the mapping runs through the chosen ones;
 * the off path: with no listener no ``record_function`` is entered and no
   record kept;
 * the listener primes the profiler at start and writes no file doing so;
@@ -126,10 +133,12 @@ def test_stats_identities(served, data, no_listener):
     assert stages[spans.PASS_WAIT] == stats["pass_wait_seconds"]
     assert stages[spans.PARSE] + stages[spans.REPLY] == pytest.approx(
         stats["front_end_seconds"], abs=2e-6)
-    # every stage of the served path ran (a 1 ms window closes each drain)
+    # every stage of the served path ran (a 1 ms window closes each drain
+    # that found a pass in flight)
     for name in spans.SPANS:
         assert stages[name] > 0, name
-    assert stages[spans.WINDOW] >= 0.001 * stats["batches"] * 0.5
+    assert 0 <= stats["idle_passes"] <= stats["batches"]
+    assert stages[spans.WINDOW] >= 0.001 * (stats["batches"] - stats["idle_passes"]) * 0.5
 
 
 def test_socket_requests_count_as_http_ones(data, tmp_path, no_listener):
@@ -290,6 +299,147 @@ def test_a_wait_behind_another_callers_pass_is_queue_wait(data):
     assert stats["total_search_seconds"] < _Recording.HOLD_S + pool_wait
 
 
+# ------------------------------------------------------------ the idle pass
+
+
+def _query(data, i):
+    return data.fingerprints[i].view(np.uint32)
+
+
+def _in_threads(searcher, queries, requests):
+    """Each query searched on a thread of its own; returns the threads."""
+    threads = [threading.Thread(target=searcher.search, args=(["lib"], [""], q),
+                                kwargs={"k": 5, "request": r})
+               for q, r in zip(queries, requests)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _joined(threads):
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+
+
+def test_a_lone_caller_on_an_idle_searcher_does_not_wait_out_the_window(data):
+    reg = _Recording(device="cpu")
+    reg.add("lib", data)
+    searcher = BatchingSearcher(reg, window_ms=200.0)
+    try:
+        searcher.search(["lib"], [""], _query(data, 4), k=5)
+    finally:
+        searcher.close()
+    stats = reg.stats()
+    assert stats["stages"]["window_part"] < 0.05
+    assert stats["idle_passes"] == stats["batches"] == stats["requests"] == 1
+
+
+def test_arrivals_during_a_pass_in_flight_share_one_later_pass(data):
+    reg = _Recording(device="cpu")
+    reg.add("lib", data)
+    reg.HOLD_S = 1.0
+    searcher = BatchingSearcher(reg, window_ms=400.0)
+    first = _query(data, 1)
+    reg.hold = int(first[0])
+    followers = [_query(data, i) for i in (2, 3, 5)]
+    assert all(int(q[0]) != reg.hold for q in followers)
+    held, behind = spans.Request(), [spans.Request() for _ in followers]
+    try:
+        threads = _in_threads(searcher, [first], [held])
+        deadline = time.monotonic() + 10
+        while not reg.passes:  # the held pass has started
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+        threads += _in_threads(searcher, followers, behind)
+        _joined(threads)
+    finally:
+        searcher.close()
+    stats = reg.stats()
+    assert len({r.pass_id for r in behind}) == 1
+    assert held.pass_id != behind[0].pass_id
+    assert sorted(reg.passes[behind[0].pass_id]) == sorted(q.tobytes() for q in followers)
+    assert stats["batches"] == 2 and stats["idle_passes"] == 1
+
+
+def test_an_idle_drain_takes_what_is_already_queued(data):
+    """The batcher wakes to the first request and, before it can see that
+    nothing is in flight, the others are queued: one pass holds all."""
+    reg = _Recording(device="cpu")
+    reg.add("lib", data)
+    searcher = BatchingSearcher(reg, window_ms=200.0)
+    queries = [_query(data, i) for i in (6, 7, 8, 9)]
+    requests = [spans.Request() for _ in queries]
+    try:
+        with searcher._in_flight_lock:  # the drain stops before it decides
+            threads = _in_threads(searcher, queries[:1], requests[:1])
+            deadline = time.monotonic() + 10
+            while searcher._queue.qsize():  # the batcher took the first
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+            threads += _in_threads(searcher, queries[1:], requests[1:])
+            while searcher._queue.qsize() < len(queries) - 1:
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+            released = spans.now()
+        _joined(threads)
+    finally:
+        searcher.close()
+    stats = reg.stats()
+    assert len({r.pass_id for r in requests}) == 1
+    assert stats["idle_passes"] == stats["batches"] == 1
+    assert len(reg.passes[requests[0].pass_id]) == len(queries)
+    assert max(r.drained for r in requests) - released < 0.05e9
+
+
+def test_a_failed_pass_leaves_nothing_in_flight(data):
+    reg = _Recording(device="cpu")
+    reg.add("lib", data)
+    searcher = BatchingSearcher(reg, window_ms=200.0)
+    try:
+        with pytest.raises(KeyError):
+            searcher.search(["nope"], [""], _query(data, 4), k=5)
+        assert searcher._in_flight == 0
+        searcher.search(["lib"], [""], _query(data, 5), k=5)
+    finally:
+        searcher.close()
+    stats = reg.stats()
+    assert searcher._in_flight == 0
+    # a failed pass is not counted: neither in ``batches`` nor as idle
+    assert stats["idle_passes"] == stats["batches"] == stats["requests"] == 1
+    assert stats["stages"]["window_part"] < 0.05
+
+
+def test_a_closed_loop_of_callers_keeps_one_pass_a_round(data):
+    """Callers that each send again soon after their answer: the first to
+    come back from a pass of several must not start a pass alone, which
+    would put a second pass into every round."""
+    reg = _Recording(device="cpu")
+    reg.add("lib", data)
+    searcher = BatchingSearcher(reg, window_ms=250.0)
+    callers, rounds = 6, 5
+
+    def caller(c):
+        rng = np.random.default_rng(c)
+        for r in range(rounds):
+            searcher.search(["lib"], [""], _query(data, 10 * c + r), k=5)
+            time.sleep(rng.uniform(0, 0.02))  # the reply and the client's turn
+
+    try:
+        threads = [threading.Thread(target=caller, args=(c,)) for c in range(callers)]
+        for t in threads:
+            t.start()
+        _joined(threads)
+    finally:
+        searcher.close()
+    stats = reg.stats()
+    assert stats["requests"] == callers * rounds
+    # at most the first round splits: its first request finds the searcher
+    # idle after no pass at all
+    assert stats["batches"] <= rounds + 1
+    assert stats["idle_passes"] <= 1
+
+
 # ------------------------------------------------------------- GET /spans
 
 
@@ -438,6 +588,60 @@ def test_merged_records_land_on_the_line_through_the_markers(tmp_path, opening):
     assert merged["args"] == {"request": 1, "pass": 2, "parent": 1,
                               "seq": merged["args"]["seq"]}
     assert listener.clock["marks"] == [[5_001_000, 1002.0], [7_001_000, 3002.0]]
+
+
+def test_the_mapping_takes_the_marker_chosen_at_each_end(tmp_path):
+    """Three markers entered at the window's opening (the second chosen)
+    and two at its closing (the first chosen): the line runs through the
+    chosen two; a count that does not match the trace merges nothing."""
+    tid = threading.get_native_id()
+    marker = {"ph": "X", "cat": "user_annotation", "name": spans.CLOCK_SPAN,
+              "pid": 3, "tid": tid, "dur": 2.0}
+    ends = (1000.0, 1100.0, 1200.0, 3000.0, 3100.0)
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [dict(marker, ts=t) for t in ends]}))
+    listener = profiler.ProfilerListener("localhost", 0, tmp_path / "traces", cuda=False)
+    try:
+        spans.TRACE.append(spans.PARSE, 5_001_000, 5_002_000, 7)
+        _, n = listener._merge_spans(path, [5_001_000, 7_001_000], ((1, 3), (0, 2)))
+        assert n == 1
+        assert listener.clock["marks"] == [[5_001_000, 1102.0], [7_001_000, 3002.0]]
+        _, n = listener._merge_spans(path, [5_001_000, 7_001_000], ((0, 1), (0, 1)))
+    finally:
+        listener.close()
+    assert n == 0
+
+
+def test_a_clock_marker_whose_exit_is_late_is_taken_again(monkeypatch):
+    """Another thread that holds the interpreter between a marker's read
+    and its exit moves the exit's stamp off the read: the marker is
+    entered again, and the one that ended soonest after its read is used."""
+    monkeypatch.setattr(profiler, "CLOCK_EXIT_NS", 5_000_000)
+    monkeypatch.setattr(profiler, "CLOCK_TRIES", 4)
+    lateness = iter([0.06, 0.04, 0.0, 0.0])
+    entered = []
+
+    class Marker:
+        def __init__(self, name):
+            entered.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            late = next(lateness)
+            if late:
+                time.sleep(late)
+
+    monkeypatch.setattr(torch.profiler, "record_function", Marker)
+    before = time.monotonic_ns()
+    read, index, tries = profiler.ProfilerListener._clock_mark()
+    assert (index, tries) == (2, 3)
+    assert entered == [spans.CLOCK_SPAN] * 3
+    assert before < read < time.monotonic_ns()
+    # none soon enough: the soonest of CLOCK_TRIES
+    lateness = iter([0.04, 0.02, 0.06, 0.06])
+    assert profiler.ProfilerListener._clock_mark()[1:] == (1, 4)
 
 
 # ------------------------------------------------------------ the off path
