@@ -38,7 +38,7 @@ Left out on purpose:
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -585,9 +585,11 @@ def sharded_local_topk(
     (:func:`~.multihost.gather_shard_candidates`) and merged
     (:func:`~..ops.topk.merge_topk`). The counts travel un-summed, one row
     per shard: the caller sums them in int64 (an int32 sum overflows past
-    2.1B rows). Inside a served pass the time until every device's work is
-    queued is its stage ``launch``, and from then until the last copy back
-    is done its stage ``wait`` (:mod:`~..serve.spans`).
+    2.1B rows). Inside a served pass (:mod:`~..serve.spans`) the time until
+    every device's work is queued is its stage ``launch``, from then until
+    the last copy back is done its stage ``wait``, and the merge its stage
+    ``shard_merge``; each device's worker gives its spans ``card.launch``
+    and ``card.wait``, and the spread of their ends the pass's card lag.
     """
     from ..serve import spans
     from . import multihost
@@ -602,6 +604,7 @@ def sharded_local_topk(
         by_device.setdefault(dev, []).append(j)
 
     def search(dev):
+        began = spans.now()
         # the kernel wrappers make each launch's device current themselves
         q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
         qp = torch.from_numpy(np.ascontiguousarray(query_pops)).to(dev)
@@ -618,30 +621,50 @@ def sharded_local_topk(
         stacked = [torch.stack([p[f] for p in parts]) for f in range(3)]
         queued = spans.now()
         v, i, c = (t.cpu() for t in stacked)
-        return {j: (v[n], i[n], c[n]) for n, j in enumerate(by_device[dev])}, queued
+        card = (began, queued, spans.now(), threading.get_native_id())
+        return {j: (v[n], i[n], c[n]) for n, j in enumerate(by_device[dev])}, card
 
     def run_all():
         if len(by_device) == 1:
-            done, queued = search(mesh.devices[0])
+            results = [search(mesh.devices[0])]
         else:
-            done, queued = {}, []
-            with ThreadPoolExecutor(len(by_device)) as pool:
-                for part, at in pool.map(search, by_device):
-                    done.update(part)
-                    queued.append(at)
-            queued = max(queued)
+            # a thread of its own for each device: a pool may hand a second
+            # device to a worker that finished its first, running them in turn
+            results = [None] * len(by_device)
+
+            def work(n, dev):
+                try:
+                    results[n] = search(dev)
+                except BaseException as exc:  # re-raised on the pass's thread
+                    results[n] = exc
+
+            threads = [threading.Thread(target=work, args=(n, dev))
+                       for n, dev in enumerate(by_device)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            for r in results:
+                if isinstance(r, BaseException):
+                    raise r
+        done, cards = {}, []
+        for part, card in results:
+            done.update(part)
+            cards.append(card)
+        queued = max(c[1] for c in cards)
         span.stage(spans.LAUNCH, start, queued)
-        span.stage(spans.PASS_WAIT, queued)
-        return done
+        waited = span.stage(spans.PASS_WAIT, queued)
+        span.card_spans(cards)
+        return done, waited
 
     try:
-        done, failure = run_all(), None
+        (done, waited), failure = run_all(), None
     except Exception as exc:  # re-raised below, after the collective
         if mesh.n_processes == 1:
             raise
         # a process whose shard search fails still joins the gather, with
         # counts of -1, so every process raises instead of waiting
-        failure = exc
+        failure, waited = exc, spans.now()
         done = {j: (torch.full((b, k), NEG_INF), torch.full((b, k), -1),
                     torch.full((b,), -1)) for j in range(len(mesh.devices))}
     parts = [done[j] for j in range(len(mesh.devices))]
@@ -652,4 +675,5 @@ def sharded_local_topk(
     if bool((counts < 0).any()):
         raise RuntimeError("a shard search failed on another process")
     vals, idx = merge_topk(vals.transpose(0, 1), idx.transpose(0, 1), k)
+    span.stage(spans.SHARD_MERGE, waited)
     return vals, idx, counts

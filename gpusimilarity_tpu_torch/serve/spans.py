@@ -12,18 +12,26 @@ A request's time splits into spans that follow it through the server:
   drain closes;
 * on the pool thread, the pass's stages: ``tpusim.pass.prepare`` (key
   checks, query fold, plane lists, popcounts), ``tpusim.pass.launch``
-  (every shard's kernels and top-k queued, up to the copy back),
+  (every card's kernels and top-k queued, up to the copy back),
   ``tpusim.pass.wait`` (the host blocked in the copy back: the device's work
-  it did not hide), ``tpusim.pass.assemble`` (``_assemble`` of every query,
-  the fold > 1 rescore included), ``tpusim.pass.strings``
-  (``_lookup_strings_batch``) and ``tpusim.pass.merge`` (``merge_results``
-  across databases);
+  it did not hide), ``tpusim.pass.shard_merge`` (the shards' candidates
+  stacked, a multi-process job's gather and ``merge_topk``),
+  ``tpusim.pass.assemble`` (``_assemble`` of every query, the fold > 1
+  rescore included), ``tpusim.pass.strings`` (``_lookup_strings_batch``)
+  and ``tpusim.pass.merge`` (``merge_results`` across databases);
+* on the worker of each card (the pass's own thread when it has one card),
+  beside the stages: ``tpusim.card.launch`` (the worker's start until its
+  shards' work is queued) and ``tpusim.card.wait`` (from then until its
+  copy back is done);
 * ``tpusim.front.reply`` (the request's handler): from the end of its pass
   (so the handler's wake-up too) to the last byte written, JSON included.
 
-What a pass spends outside its named stages (a multi-process job's gather,
-the shard merge) is its stage ``other``, so the stages add up to the pass,
-and parse + wait + pass + reply is the request's time in the handler.
+What a pass spends outside its named stages is its stage ``other``, so the
+stages add up to the pass, and parse + wait + pass + reply is the request's
+time in the handler. The card spans overlap one another and the stages
+``launch`` and ``wait``; the launches add up to ``card_launch_seconds``,
+and each pass adds its last card's copy back done less its first's to
+``card_lag_seconds`` (0 with one card).
 
 Every span adds its nanoseconds to a :class:`Counters` of the registry
 (``/stats``, always on: two clock reads and one add into a dict of the
@@ -56,12 +64,19 @@ WAIT = "tpusim.batch.wait"
 PREPARE = "tpusim.pass.prepare"
 LAUNCH = "tpusim.pass.launch"
 PASS_WAIT = "tpusim.pass.wait"
+SHARD_MERGE = "tpusim.pass.shard_merge"
 ASSEMBLE = "tpusim.pass.assemble"
 STRINGS = "tpusim.pass.strings"
 MERGE = "tpusim.pass.merge"
 REPLY = "tpusim.front.reply"
-SPANS = (PARSE, WINDOW, WAIT, PREPARE, LAUNCH, PASS_WAIT, ASSEMBLE, STRINGS,
-         MERGE, REPLY)
+SPANS = (PARSE, WINDOW, WAIT, PREPARE, LAUNCH, PASS_WAIT, SHARD_MERGE, ASSEMBLE,
+         STRINGS, MERGE, REPLY)
+# a pass's spans on the worker of each card, beside its stages, and the
+# counted spread of the cards' ends
+CARD_LAUNCH = "tpusim.card.launch"
+CARD_WAIT = "tpusim.card.wait"
+CARD_SPANS = (CARD_LAUNCH, CARD_WAIT)
+CARD_LAG = "card_lag"
 # counted, never kept as records: the two parts of a request's wait, a
 # pass's time outside its named stages, the requests answered, and the
 # passes the batcher started at once, no pass being in flight
@@ -125,8 +140,8 @@ class Counters:
         """The ``/stats`` keys of these counters: ``requests``,
         ``idle_passes``, the seconds of the front end (parse and reply),
         the batch wait, the passes' copy-back wait and host time
-        (``total_search_seconds`` less that wait), each stage's seconds,
-        and :data:`STARTUP`'s steps."""
+        (``total_search_seconds`` less that wait), the card spans and the
+        cards' lag, each stage's seconds, and :data:`STARTUP`'s steps."""
         spent = self.totals()
 
         def seconds(ns):
@@ -140,6 +155,8 @@ class Counters:
             "queue_wait_seconds": seconds(spent[WAIT]),
             "pass_wait_seconds": pass_wait,
             "pass_host_seconds": round(total_search_seconds - pass_wait, 6),
+            "card_launch_seconds": seconds(spent[CARD_LAUNCH]),
+            "card_lag_seconds": seconds(spent[CARD_LAG]),
             "stages": {name: seconds(spent[name]) for name in STAGES},
             "startup": STARTUP.steps(),
         }
@@ -256,13 +273,14 @@ class PassSpan:
     :func:`current_pass`, into which the engine's stages record. ``idle``:
     the batcher started it at once, no pass being in flight."""
 
-    __slots__ = ("id", "tid", "start", "end", "spent", "idle", "_outer")
+    __slots__ = ("id", "tid", "start", "end", "spent", "cards", "idle", "_outer")
 
     def __init__(self, idle: bool = False):
         self.id = next_id()
         self.idle = idle
         self.start = self.end = None
         self.spent: dict[str, int] = {}
+        self.cards: dict[str, int] = {}
 
     def __enter__(self) -> "PassSpan":
         self.tid = threading.get_native_id()
@@ -284,12 +302,25 @@ class PassSpan:
             TRACE.append(name, start, end, self.tid, None, self.id, self.id)
         return end
 
+    def card_spans(self, cards) -> None:
+        """Record each card's spans, ``cards`` holding one ``(began,
+        queued, done, tid)`` per card from its worker, and the spread of
+        their ``done``; called once the workers are joined."""
+        for began, queued, done, tid in cards:
+            self.cards[CARD_LAUNCH] = self.cards.get(CARD_LAUNCH, 0) + queued - began
+            if TRACE.ring is not None:
+                for name, start, end in ((CARD_LAUNCH, began, queued),
+                                         (CARD_WAIT, queued, done)):
+                    TRACE.append(name, start, end, tid, None, self.id, self.id)
+        ends = [c[2] for c in cards]
+        self.cards[CARD_LAG] = self.cards.get(CARD_LAG, 0) + max(ends) - min(ends)
+
     def count(self, counters: Counters) -> None:
         """Add this ended pass's stages to ``counters``, the rest of its
-        time as ``other``, and the pass to ``idle_passes`` if idle (here,
-        where the registry counts it in ``batches``, and not when its
-        drain closed: the two counts then move together)."""
-        for name, ns in self.spent.items():
+        time as ``other``, its card spans, and the pass to ``idle_passes``
+        if idle (here, where the registry counts it in ``batches``, and not
+        when its drain closed: the two counts then move together)."""
+        for name, ns in (*self.spent.items(), *self.cards.items()):
             counters.add(name, ns)
         counters.add(OTHER, self.end - self.start - sum(self.spent.values()))
         if self.idle:
@@ -303,6 +334,10 @@ class _NoPass:
     @staticmethod
     def stage(name: str, start: int, end: int | None = None) -> int:
         return now() if end is None else end
+
+    @staticmethod
+    def card_spans(cards) -> None:
+        pass
 
 
 _NO_PASS = _NoPass()

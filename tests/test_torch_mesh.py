@@ -488,19 +488,20 @@ def test_every_launch_runs_under_its_tensors_device(name, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cards", [2, 4])
 @pytest.mark.parametrize("mode", ["dense", "bitplane"])
-def test_two_card_mesh_equals_one_card(mode):
-    """A library sharded over two cards answers exactly as on one card."""
-    if torch.cuda.device_count() < 2:
-        pytest.skip("needs two CUDA cards")
+def test_two_card_mesh_equals_one_card(mode, cards):
+    """A library sharded over two (or four) cards answers exactly as on one
+    card."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA cards")
     data = _data(300_000, seed=5)
-    q = data.packed_words()[[1, 150_000, 299_999]]
+    q = data.packed_words()[[1, 75_000, 150_000, 225_000, 299_999]]
     one = FingerprintDB(data, device="cuda:0", scan_mode=mode)
-    two = FingerprintDB(data, mesh=pmesh.make_mesh(["cuda:0", "cuda:1"]),
-                        scan_mode=mode)
+    devices = [torch.device("cuda", i) for i in range(cards)]
+    two = FingerprintDB(data, mesh=pmesh.make_mesh(devices), scan_mode=mode)
     assert [s.planes.device if mode == "bitplane" else s.words.device
-            for s in two.store.shards] == [torch.device("cuda", 0),
-                                           torch.device("cuda", 1)]
+            for s in two.store.shards] == devices
     for k, cut in ((20, 0.0), (128, 0.3)):
         got = two.search_batch(q, k, cut, "k", return_indices=True)
         want = one.search_batch(q, k, cut, "k", return_indices=True)

@@ -61,8 +61,8 @@ from gpusimilarity_tpu_torch.utils.qtstream import QtStreamWriter
 REPO = Path(__file__).resolve().parents[1]
 N_ROWS = 2000
 CLIENTS, PER_CLIENT = 4, 6
-PASS_STAGES = (spans.PREPARE, spans.LAUNCH, spans.PASS_WAIT, spans.ASSEMBLE,
-               spans.STRINGS, spans.MERGE, spans.OTHER)
+PASS_STAGES = (spans.PREPARE, spans.LAUNCH, spans.PASS_WAIT, spans.SHARD_MERGE,
+               spans.ASSEMBLE, spans.STRINGS, spans.MERGE, spans.OTHER)
 # a merged span and its profiler event: the two clocks agree this closely
 CLOCK_US = 200.0
 
@@ -469,7 +469,7 @@ def test_get_spans(served, data, tmp_path):
         assert records and got["last"] == records[-1]["seq"]
         for r in records:
             assert set(r) == set(spans.RECORD_FIELDS)
-            assert r["name"] in spans.SPANS
+            assert r["name"] in spans.SPANS + spans.CARD_SPANS
             assert r["start_ns"] <= r["end_ns"] <= got["now_ns"]
         by_name = {}
         for r in records:
@@ -519,7 +519,7 @@ def test_a_capture_holds_the_spans_on_its_clock(served, data, tmp_path):
     assert len(requests) == len(rows) and len(searches) == batches
     assert all(e["cat"] == "user_annotation" for e in requests + searches)
     assert reply["merged_spans"] == len(merged) > 0
-    assert {e["name"] for e in merged} <= set(spans.SPANS)
+    assert {e["name"] for e in merged} <= set(spans.SPANS + spans.CARD_SPANS)
     assert {spans.PARSE, spans.WAIT, spans.REPLY, spans.PREPARE,
             spans.ASSEMBLE} <= {e["name"] for e in merged}
 
@@ -534,7 +534,9 @@ def test_a_capture_holds_the_spans_on_its_clock(served, data, tmp_path):
             own_request.setdefault(span["args"]["request"], {})[span["name"]] = span
             own_request[span["args"]["request"]]["event"] = event
         elif span["name"] in (spans.PREPARE, spans.LAUNCH, spans.PASS_WAIT,
-                              spans.ASSEMBLE, spans.STRINGS):
+                              spans.SHARD_MERGE, spans.ASSEMBLE, spans.STRINGS,
+                              *spans.CARD_SPANS):
+            # one card: its worker is the pass's own thread
             assert any(_inside(span, e)
                        for e in by_tid.get((span["tid"], "tpusim.search.lib"), []))
     # a request's parse-to-reply lies inside its profiler event (the two
