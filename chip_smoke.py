@@ -5,7 +5,7 @@
 Run from the repository root on a machine with a CUDA card, nvcc and no
 JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
-(a) build the three phase-1 kernels from ``gpusimilarity_tpu_torch/csrc``,
+(a) build the four kernels from ``gpusimilarity_tpu_torch/csrc``,
     one nvcc per source, started together, and beside them the native host
     runtime from ``native/`` (``utils/native.py``: built at first use where
     no hand-built library loads, as in a ``git archive``), which must load;
@@ -19,6 +19,11 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
     fields), a query with no set bits;
 (c) the engine's bitplane search (k 20 and 128, batches of 1 and 32) at
     that size against a plain dense full scan over the packed rows;
+(r) the rescore kernel (selection stage 3) against its plain PyTorch
+    chain, bit for bit, on that store at the main path's shapes: the words
+    stages 1-2 select at kw 128, plane bucket 64, B 1 and 32 with a query
+    with no set bits, Tanimoto and Tversky, a word across ``n_valid``; its
+    times at B 1 and 32 beside the chain's and its bound;
 (p) where one search's time goes at that size (B 1 and 32, k 128): wall
     time from CUDA events without the profiler, the device's busy time and
     its top ops from torch.profiler, and the idle share;
@@ -132,7 +137,9 @@ JAX needed. Phases, in order; any failure raises and the run exits non-zero:
 
 The main path of each kernel is driven with its launch counter reset just
 before and read just after: the bitplane kernel in (c), (d), (g), (h), (s),
-(w), (x), (t) and (u), the dense kernel in (e), (f), (s), (w), (x), (t) and
+(w), (x), (t) and (u), and the rescore beside it, one launch of each a
+shard a pass ((d) checks them against the server's passes), the dense
+kernel in (e), (f), (s), (w), (x), (t) and
 (u) (the servers' counts come from ``/stats``, read after ``ready`` and after
 the checked requests, so their warm-up counts nowhere; the two-process
 server's from process 0's; (x)'s over each capture's window, where the trace
@@ -141,7 +148,7 @@ must show the same number of kernel events;
 counts),
 the matrix-product kernel in the probe of (m), which is the one entry point
 that runs it. (s) reads its counts around each sharded search and server
-it checks. Launches made in (b), (b2), (p), (p2) and (m) before the probe,
+it checks. Launches made in (b), (r), (b2), (p), (p2) and (m) before the probe,
 and in (s)'s unsharded references, timing loops and dry run, to compare or
 profile, do not count. It prints the card's name and power limit, one JSON line describing
 the kernels, the seconds of each phase, and last
@@ -188,6 +195,8 @@ SEED = 2026
 KERNELS = {
     "bitplane_phase1": ("gpusimilarity_tpu_torch/csrc/bitplane_phase1.cu",
                         "gpusimilarity_tpu/ops/pallas_bitplane.py:53"),
+    "bitplane_rescore": ("gpusimilarity_tpu_torch/csrc/bitplane_rescore.cu",
+                         "gpusimilarity_tpu/parallel/sharded.py:1105"),
     "dense_phase1": ("gpusimilarity_tpu_torch/csrc/dense_phase1.cu",
                      "gpusimilarity_tpu/ops/pallas_scan.py:34"),
     "mxu_phase1": ("gpusimilarity_tpu_torch/csrc/mxu_phase1.cu",
@@ -277,7 +286,7 @@ def perturb(q: np.ndarray, seed: int) -> np.ndarray:
 
 
 def phase_build():
-    """(a) the three kernels, one nvcc each, and beside them the native host
+    """(a) the four kernels, one nvcc each, and beside them the native host
     runtime, which must load: built at first use from ``native/`` in a
     checkout that has no hand-built library (a ``git archive`` has none)."""
     from gpusimilarity_tpu_torch.utils import kernels, native
@@ -442,6 +451,89 @@ def phase_engine(rows, store, device, reps=5):
             f"scan (count[0]={int(cnt[0])}); median latency "
             f"{latency[(b, k)]:.3f} ms")
     return latency
+
+
+def rescore_bound(plane_idx: torch.Tensor, sentinel: int, kw: int):
+    """Selection stage 3 over ``kw`` words a query: the set planes' words at
+    the selected words, the columns' popcounts, the word and plane lists,
+    and the scores and columns it writes."""
+    from gpusimilarity_tpu_torch.tools.probe_mxu import bound
+
+    b, p = plane_idx.shape
+    set_planes = int((plane_idx != sentinel).sum())
+    moved = set_planes * kw * 4 + b * kw * (32 * 2 + 8) + b * p * 4 + b * kw * 32 * 12
+    return bound(moved)
+
+
+def phase_rescore_vs_plain(rows, store, device, reps=20):
+    """(r) The rescore kernel (selection stage 3) against its plain PyTorch
+    chain, bit for bit in scores and columns, on (b)'s store at the main
+    path's shapes: the words stages 1-2 select after kernel 1 at kw 128
+    (the fetch of a k=20 request), plane bucket 64, B 1 and 32 with a query
+    with no set bits, Tanimoto and Tversky, and a word across ``n_valid``.
+    Times at B 1 and 32 (Tanimoto): the kernel's median and the chain's,
+    between CUDA events, and the bound."""
+    from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
+    from gpusimilarity_tpu_torch.ops.bitplane_phase1 import bitplane_phase1_batched
+    from gpusimilarity_tpu_torch.ops.bitplane_rescore import (
+        bitplane_rescore,
+        bitplane_rescore_plain,
+    )
+    from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+    from gpusimilarity_tpu_torch.parallel.sharded import select_blocks, select_words
+
+    n, kw = store.n_valid, 128
+    pops = store.popcounts[:n]
+    idx = pick_queries(rows, pops, n, 31, 64, SEED + 31)
+    q32 = np.concatenate([rows[idx].cpu().numpy().view(np.uint32),
+                          np.zeros((1, 32), np.uint32)])  # + a zero query
+    last = (n - 1) // 32  # the word that holds n_valid's boundary
+    check(n % 32 != 0, f"(r) {n:,} rows end on a word boundary")
+    max_err, timing = 0.0, {}
+    for name, q, sim, ab, across in (
+        ("B1 tanimoto", q32[:1], "tanimoto", (1.0, 1.0), False),
+        ("B32 tanimoto", q32, "tanimoto", (1.0, 1.0), False),
+        ("B32 tversky", q32, "tversky", (0.7, 0.3), False),
+        ("B32 tanimoto, a word across n_valid", q32, "tanimoto", (1.0, 1.0), True),
+    ):
+        b = len(q)
+        plane_idx, p = query_plane_indices(q, store.bitcount, 64)
+        check(p == 64, f"(r) {name}: bucket {p} != 64")
+        pi = torch.from_numpy(plane_idx).to(device)
+        qp = torch.from_numpy(popcount_rows_np(q)).to(device)
+        block_max, _cnt, colmax = bitplane_phase1_batched(
+            store.planes, store.popcounts, pi, qp,
+            torch.zeros(b, dtype=torch.float32, device=device),
+            torch.tensor(ab, dtype=torch.float32, device=device), n, sim)
+        w_sel = select_words(colmax, select_blocks(block_max, kw), kw).contiguous()
+        if across:
+            w_sel[:, -1] = last
+        args = (store.planes, store.popcounts, pi, qp, w_sel, n, sim, *ab)
+        got, got_cols = bitplane_rescore(*args)
+        want, want_cols = bitplane_rescore_plain(*args)
+        check(torch.equal(got_cols, want_cols), f"(r) {name}: columns differ")
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"(r) {name}: scores not bit-identical")
+        finite = torch.isfinite(want)
+        err = (got[finite] - want[finite]).abs().max().item()
+        max_err = max(max_err, err)
+        if across:
+            cut = want_cols[:, -32:] >= n
+            check(bool(cut.any()) and bool(torch.isneginf(got[:, -32:][cut]).all()),
+                  f"(r) {name}: columns from n_valid on are not -inf")
+        zero = got[-1][torch.isfinite(got[-1])]
+        check(b == 1 or zero.max().item() == 0.0,
+              f"(r) {name}: the zero query scored above 0")
+        if sim == "tanimoto" and not across:
+            k_ms = median_ms(lambda: bitplane_rescore(*args), device, reps)
+            p_ms = median_ms(lambda: bitplane_rescore_plain(*args), device, 5)
+            timing[b] = (k_ms, p_ms, rescore_bound(pi, store.bitcount, kw))
+            log(f"[r] {name} kw {kw} bucket 64 at {n:,} rows: kernel median "
+                f"{k_ms:.4f} ms, plain chain median {p_ms:.3f} ms, bound "
+                f"{timing[b][2][0]:.5f} ms ({timing[b][2][1]})")
+        log(f"[r] {name} kw {kw}: scores and columns bit-identical to the "
+            f"plain chain (max abs err {err})")
+    return max_err, timing
 
 
 def _profile_search(tag, label, fn, device, reps):
@@ -834,7 +926,10 @@ def phase_server(device, path, n_rows, server_args=(), fold=1, tag="d",
     """Serve (d)'s written .fsim through the CLI and check its answers over
     HTTP, and with ``socket_dir`` two over the reference's socket too;
     returns the launches of ``kernel`` the server counted for them (from
-    /stats, zero when the server starts) and the number of requests."""
+    /stats, zero when the server starts) and the number of requests. A
+    bitplane server's rescore launches come back beside its kernel 1's:
+    one of each a pass that reaches the card, which is every pass but the
+    wrong key's."""
     rows, pops = server_rows(device, n_rows)
     args = ["--batch_window_ms", "50", *server_args]
     if socket_dir is not None:
@@ -845,15 +940,22 @@ def phase_server(device, path, n_rows, server_args=(), fold=1, tag="d",
         log(f"[{tag}] /stats: fold {db_stats['fold_factor']}, scan mode "
             f"{db_stats['scan_mode']}, {db_stats['device_bytes']:,} device bytes")
         check(db_stats["fold_factor"] == fold, f"server fold {db_stats['fold_factor']}")
-        launches0 = stats["kernel_launches"][kernel]
+        stats0 = stats
         count = _check_requests(port, rows, pops, device, fold, tag)
         if socket_dir is not None:
             count += _check_socket_requests(
                 Path(socket_dir) / SOCKET_NAME, rows, pops, device, fold, tag)
         stats = _get(port, "/stats")
-        launches = stats["kernel_launches"][kernel] - launches0
-        log(f"[{tag}] answered {count} requests; server {kernel} launches "
-            f"{launches}; /stats searches {stats['searches']}")
+        names = [kernel] + (["bitplane_rescore"] if kernel == "bitplane_phase1" else [])
+        launches = {name: stats["kernel_launches"][name]
+                    - stats0["kernel_launches"][name] for name in names}
+        passes = stats["batches"] - stats0["batches"]
+        if kernel == "bitplane_phase1":
+            check(launches["bitplane_rescore"] == launches[kernel] == passes - 1,
+                  f"[{tag}] {launches} launches in {passes} passes, one the "
+                  f"wrong key's")
+        log(f"[{tag}] answered {count} requests in {passes} passes; server "
+            f"launches {launches}; /stats searches {stats['searches']}")
     return launches, count
 
 
@@ -1269,9 +1371,11 @@ def phase_profile_dense(store, device, reps=10):
 
 def phase_bitplane_fold(device, n_rows, fold=4):
     """(g) One B=32, k=128 bitplane search at fold 4 on a virtual library,
-    checked by (e)'s rules; returns the bitplane kernel's launches."""
+    checked by (e)'s rules; returns the launches of the bitplane kernel and
+    of the rescore, one of each."""
     from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
     from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
+    from gpusimilarity_tpu_torch.ops import bitplane_rescore
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows, scores_np
     from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
@@ -1297,10 +1401,13 @@ def phase_bitplane_fold(device, n_rows, fold=4):
     qfull = virtual_rows_np(rows, seed=SEED)
     cut = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
     ph1.reset_launch_count()
+    bitplane_rescore.reset_launch_count()
     t0 = time.perf_counter()
     res = db.search_batch(qfull, 128, cut, "g", return_indices=True)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = ph1.launch_count()
+    launches = {"bitplane_phase1": ph1.launch_count(),
+                "bitplane_rescore": bitplane_rescore.launch_count()}
+    check(list(launches.values()) == [1, 1], f"[g] launches {launches}")
     folded = virtual_folded_rows(n_rows, fold, 32, SEED, device)
     qf = np.ascontiguousarray(fold_words(qfull, fold))
     _v, _i, counts = full_scan_topk(
@@ -1313,7 +1420,7 @@ def phase_bitplane_fold(device, n_rows, fold=4):
                       r.approximate_count, full, cut[qi], int(rows[qi]))
     log(f"[g] B=32 k=128 at fold {fold}: rules 1-4 hold for every query; "
         f"search_batch {ms:.3f} ms (host clock, rescore included); "
-        f"bitplane launches {launches}")
+        f"launches {launches}")
     return launches
 
 
@@ -1348,10 +1455,11 @@ def phase_sharded_bitplane(rows, store, device, reps=10):
     """(s) The 113,335,291-row bitplane library cut into 4 shards on the
     card, searched through ``sharded_local_topk`` against the unsharded
     store's answers to the same queries: equal scores, equal summed counts,
-    every index carrying its score; one kernel launch per shard; the
-    search's wall time at 4 shards and at 1. Returns the times and the
-    launches."""
+    every index carrying its score; one launch of kernel 1 and one of the
+    rescore per shard; the search's wall time at 4 shards and at 1. Returns
+    the times and the launches of each."""
     from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
+    from gpusimilarity_tpu_torch.ops import bitplane_rescore
     from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
     from gpusimilarity_tpu_torch.ops.scan import (
         popcount_rows,
@@ -1376,19 +1484,22 @@ def phase_sharded_bitplane(rows, store, device, reps=10):
     idx = pick_queries(rows, pops, n, 32, 64, SEED + 5)
     q32 = rows[idx].cpu().numpy().view(np.uint32)
     cut32 = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
-    out, launches = {}, 0
+    out, launches = {}, {"bitplane_phase1": 0, "bitplane_rescore": 0}
     for b in (1, 32):
         q, cut = q32[:b], cut32[:b]
         plane_idx, _bucket = query_plane_indices(q, store.bitcount)
         qp = popcount_rows_np(q)
         v1, _i1, c1 = sharded_local_topk(one, plane_idx, qp, cut, 128)
-        before = ph1.launch_count()
+        before = ph1.launch_count(), bitplane_rescore.launch_count()
         v4, i4, c4 = sharded_local_topk(four, plane_idx, qp, cut, 128)
         sync(device)
-        per_search = ph1.launch_count() - before
-        launches += per_search
-        check(per_search == S_BITPLANE_SHARDS,
-              f"[s] B={b}: {per_search} launches for {S_BITPLANE_SHARDS} shards")
+        per_search = ph1.launch_count() - before[0]
+        per_search_rescore = bitplane_rescore.launch_count() - before[1]
+        launches["bitplane_phase1"] += per_search
+        launches["bitplane_rescore"] += per_search_rescore
+        check(per_search == per_search_rescore == S_BITPLANE_SHARDS,
+              f"[s] B={b}: {per_search} kernel 1 and {per_search_rescore} "
+              f"rescore launches for {S_BITPLANE_SHARDS} shards")
         check(torch.equal(v4, v1), f"[s] B={b}: 4-shard scores differ from 1 shard")
         check(tuple(c4.shape) == (S_BITPLANE_SHARDS, b)
               and torch.equal(c4.sum(0), c1.sum(0)), f"[s] B={b}: counts differ")
@@ -1489,16 +1600,19 @@ def phase_sharded_server_stats(device, path):
     """(s) (d)'s library served in process over a 4-shard bitplane mesh and
     a 2-shard fold-4 dense mesh on the card: answers exact by (d)'s rules,
     ``/stats`` reporting the shards and counting one launch per shard per
-    request. Returns each kernel's launches over the checked requests, read
-    from ``/stats``."""
+    request, of kernel 1 and of the rescore on the bitplane mesh. Returns
+    each kernel's launches over the checked requests, read from
+    ``/stats``."""
     from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
     from gpusimilarity_tpu_torch.parallel.mesh import make_mesh
     from gpusimilarity_tpu_torch.serve.server import SimilarityServer
 
     rows, pops = server_rows(device, SERVER_ROWS)
     served = {}
-    for shards, fold, kernel in ((S_BITPLANE_SHARDS, None, "bitplane_phase1"),
-                                 (S_DENSE_SHARDS, 4, "dense_phase1")):
+    for shards, fold, names in (
+        (S_BITPLANE_SHARDS, None, ("bitplane_phase1", "bitplane_rescore")),
+        (S_DENSE_SHARDS, 4, ("dense_phase1",)),
+    ):
         reg = DatabaseRegistry.from_fsim_files(
             [str(path)], mesh=make_mesh([device] * shards), fold_factor=fold)
         srv = SimilarityServer(reg, port=0, window_ms=50.0)
@@ -1507,23 +1621,25 @@ def phase_sharded_server_stats(device, path):
             stats = _get(srv.port, "/stats")
             check(stats["databases"]["smoke"]["shards"] == shards,
                   f"[s] /stats shards {stats['databases']['smoke']['shards']}")
-            l_start = stats["kernel_launches"][kernel]
+            l_start = stats["kernel_launches"]
             _check_requests(srv.port, rows, pops, device, fold or 1, "s")
-            l0 = _get(srv.port, "/stats")["kernel_launches"][kernel]
+            l0 = _get(srv.port, "/stats")["kernel_launches"]
             for i in (11, SERVER_ROWS // 7, SERVER_ROWS - 1):
                 _post(srv.port, {
                     "fp_hex": rows[i].cpu().numpy().view(np.uint8).tobytes().hex(),
                     "return_count": 20, "dbnames": "smoke", "dbkeys": "smoke"})
             stats = _get(srv.port, "/stats")
-            launches = stats["kernel_launches"][kernel] - l0
-            check(launches == 3 * shards,
-                  f"[s] /stats: {launches} {kernel} launches for 3 requests on "
+            launches = {name: stats["kernel_launches"][name] - l0[name]
+                        for name in names}
+            check(set(launches.values()) == {3 * shards},
+                  f"[s] /stats: {launches} launches for 3 requests on "
                   f"{shards} shards")
-            served[kernel] = stats["kernel_launches"][kernel] - l_start
+            for name in names:
+                served[name] = stats["kernel_launches"][name] - l_start[name]
             mode = stats["databases"]["smoke"]["scan_mode"]
             log(f"[s] /stats on {shards} shards ({mode}, "
-                f"fold {fold or 1}): answers exact; 3 requests, {launches} "
-                f"{kernel} launches")
+                f"fold {fold or 1}): answers exact; 3 requests, launches "
+                f"{launches}")
         finally:
             srv.close()
         del reg
@@ -1560,7 +1676,7 @@ def phase_two_process_server(device, path, tmp, server_args=()):
     answers exact by (d)'s rules over HTTP and the socket, each process fed
     its half of the fingerprint bytes, both exiting cleanly; the HTTP and
     socket B=1 round-trip p50 of each. Returns the p50s and process 0's
-    bitplane launches."""
+    launches of kernel 1 and of the rescore."""
     from gpusimilarity_tpu_torch.parallel.sharded import (
         SELECT_BLOCK_COLS,
         plan_shard_spans,
@@ -1570,7 +1686,7 @@ def phase_two_process_server(device, path, tmp, server_args=()):
     sock_dir = Path(tmp) / "s"
     sock_dir.mkdir(exist_ok=True)
     sock = sock_dir / SOCKET_NAME
-    p50, launches = {}, 0
+    p50, launches = {}, {}
     for processes in (1, 2):
         logs = []
         with serving([path], ["--socket_name", SOCKET_NAME, *server_args], "s",
@@ -1580,10 +1696,12 @@ def phase_two_process_server(device, path, tmp, server_args=()):
                   and stats["databases"]["smoke"]["shards"] == processes,
                   f"[s] /stats of the {processes}-process server: {stats}")
             if processes == 2:
-                l0 = stats["kernel_launches"]["bitplane_phase1"]
+                l0 = stats["kernel_launches"]
                 _check_requests(port, rows, pops, device, 1, "s")
                 _check_socket_requests(sock, rows, pops, device, 1, "s")
-                launches = _get(port, "/stats")["kernel_launches"]["bitplane_phase1"] - l0
+                l1 = _get(port, "/stats")["kernel_launches"]
+                launches = {name: l1[name] - l0[name]
+                            for name in ("bitplane_phase1", "bitplane_rescore")}
             p50[processes] = _round_trips(port, sock, rows, SERVER_ROWS)
         log(f"[s] {processes}-process server, B=1 k=20 round trip p50 over "
             f"{S_ROUND_TRIPS} requests: HTTP {p50[processes][0]:.3f} ms, socket "
@@ -1642,6 +1760,21 @@ def _burst(port, forms):
             max((d[2] - d[1]) * 1e3 for d in done))
 
 
+# the kernels a server launches in a pass, by the kernel 1 of its scan mode
+SERVED_KERNELS = {"bitplane_phase1": ("bitplane_phase1", "bitplane_rescore"),
+                  "dense_phase1": ("dense_phase1",)}
+
+
+def _launched(before, after, kernel, tag):
+    """The launches between two ``/stats`` replies of a server whose kernel
+    1 is ``kernel``, of each kernel it runs a pass; a one-shard bitplane
+    server launches the rescore as often as kernel 1."""
+    out = {name: after["kernel_launches"][name] - before["kernel_launches"][name]
+           for name in SERVED_KERNELS[kernel]}
+    check(len(set(out.values())) == 1, f"[{tag}] launches {out}")
+    return out
+
+
 def _first_requests(port, forms, kernel):
     """The first request, ``W_NEXT`` more one at a time, then the burst of
     ``W_BURST`` and ``W_LATER`` more of it for reference: the replies and
@@ -1694,7 +1827,8 @@ def phase_first_requests(device, path, server_args=()):
     forms = [{"fp_hex": rows[i].cpu().numpy().view(np.uint8).tobytes().hex(),
               "return_count": 20, "similarity_cutoff": 0, "dbnames": "smoke",
               "dbkeys": "smoke"} for i in picks]
-    records, launches = [], {"bitplane_phase1": 0, "dense_phase1": 0}
+    records = []
+    launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
     for label, fold, kernel, flags in W_SERVERS:
         for warm in (False, True):
             logs = []
@@ -1702,13 +1836,15 @@ def phase_first_requests(device, path, server_args=()):
             args = [*flags, *server_args] + ([] if warm else ["--no_warmup"])
             with serving([path], args, "w", logs=logs) as port:
                 ready_s = time.monotonic() - t0
-                at_ready = _get(port, "/stats")["kernel_launches"][kernel]
+                ready_stats = _get(port, "/stats")
+                at_ready = ready_stats["kernel_launches"][kernel]
                 check((at_ready > 0) == warm,
                       f"[w] {label}: {at_ready} {kernel} launches before ready "
                       f"({'with' if warm else 'without'} warm-up)")
                 replies, times = _first_requests(port, forms, kernel)
                 stats = _get(port, "/stats")
-                launched = stats["kernel_launches"][kernel] - at_ready
+                launched_each = _launched(ready_stats, stats, kernel, "w")
+                launched = launched_each[kernel]
             rc, lines = logs[0]
             check(rc == 0, f"[w] {label} server exited {rc} on SIGINT:\n"
                   + "".join(lines[-20:]))
@@ -1723,7 +1859,8 @@ def phase_first_requests(device, path, server_args=()):
                 _check_answer("w", label, rows, pops, rows[i], 20, 0.0, "tanimoto",
                               (1.0, 1.0), got, _smoke_rows("w", ids, smiles),
                               reply["approximate_count"], fold, i, quiet=True)
-            launches[kernel] += launched
+            for name, n in launched_each.items():
+                launches[name] += n
             record = {
                 "server": label, "warmup": warm, "ready_s": round(ready_s, 3),
                 "warmup_s": warmed[0] if warmed else None, **times,
@@ -1925,7 +2062,8 @@ def phase_profiled_servers(device, path, tmp, server_args=()):
               "return_count": 20, "similarity_cutoff": 0, "dbnames": "smoke",
               "dbkeys": "smoke"} for i in picks]
     trace_dir = Path(tmp) / "traces"
-    records, launches = {}, {"bitplane_phase1": 0, "dense_phase1": 0}
+    records = {}
+    launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
     for label, fold, kernel, kernel_name, flags, cold in X_SERVERS:
         root = _package_copy(tmp) if cold else ROOT
         profiler_port = _free_port()
@@ -1956,12 +2094,13 @@ def phase_profiled_servers(device, path, tmp, server_args=()):
             check(times[0][0] >= lo and done_at <= hi,
                   f"[x] {label}: the requests ran outside the window "
                   f"[{lo:.3f}, {hi:.3f}] ({times[0][0]:.3f}-{done_at:.3f})")
-            launched = (stats["kernel_launches"][kernel]
-                        - stats0["kernel_launches"][kernel])
+            launched_each = _launched(stats0, stats, kernel, "x")
+            launched = launched_each[kernel]
             events, spans = _checked_trace(
                 "x", reply, kernel_name, stats["batches"] - stats0["batches"],
                 launched)
-            launches[kernel] += launched
+            for name, n in launched_each.items():
+                launches[name] += n
             for i, answer in zip(picks, replies):
                 ids, smiles, scores = zip(*answer["results"])
                 _check_answer("x", label, rows, pops, rows[i], 20, 0.0, "tanimoto",
@@ -2042,8 +2181,7 @@ def phase_profiled_servers(device, path, tmp, server_args=()):
         "spans": len(searches), "requests_traced": len(requests),
         "trace_bytes": p["profile"]["bytes"], "events": p["profile"]["events"],
     }
-    for name, n in p["kernel_launches"].items():
-        launches[name] += n
+    _add_launches(launches, p)
     log(f"[x] load ({gpu_line()}): {json.dumps(records['load'])}")
     log("[x] " + json.dumps({"profiled_servers": records, "card": gpu_line()}))
     return records, launches
@@ -2278,7 +2416,7 @@ def phase_entrypoints(device, tmp, smoke_path, built, server_args=()):
     args = ["--socket_name", SOCKET_NAME, "--http_interface", *server_args]
     with serving([built["fsim"], built["merged"], smoke_path], args, "h", tmp) as port:
         sock = Path(tmp) / SOCKET_NAME
-        launches0 = _get(port, "/stats")["kernel_launches"]["bitplane_phase1"]
+        stats0 = _get(port, "/stats")
 
         def fp_of(name, i):
             return libs[name].rows[i % libs[name].rows.shape[0]]
@@ -2405,9 +2543,10 @@ def phase_entrypoints(device, tmp, smoke_path, built, server_args=()):
             f"({fdw_rows[0]['id']})")
 
         stats = _get(port, "/stats")
-        out["launches"] = stats["kernel_launches"]["bitplane_phase1"] - launches0
-        check(out["launches"] > 0, "[h] the bitplane kernel did not launch")
-        log(f"[h] server bitplane launches {out['launches']}; /stats searches "
+        out["launches"] = _launched(stats0, stats, "bitplane_phase1", "h")
+        check(out["launches"]["bitplane_phase1"] > 0,
+              "[h] the bitplane kernel did not launch")
+        log(f"[h] server launches {out['launches']}; /stats searches "
             f"{stats['searches']}")
     out["createdb_rates"] = built["rates"]
     return out
@@ -2660,6 +2799,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(gpu_line())
     from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
+    from gpusimilarity_tpu_torch.ops import bitplane_rescore
     from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
     from gpusimilarity_tpu_torch.ops import mxu_phase1 as ph3
     from gpusimilarity_tpu_torch.parallel.sharded import build_store
@@ -2675,9 +2815,16 @@ def main() -> int:
 
     with phase("c"):
         ph1.reset_launch_count()  # the bitplane main path starts here
+        bitplane_rescore.reset_launch_count()
         latency = phase_engine(rows, store, device)
         engine_launches = ph1.launch_count()
+        engine_rescores = bitplane_rescore.launch_count()
         check(engine_launches > 0, "(c) launched no kernel")
+        check(engine_rescores == engine_launches,
+              f"(c) {engine_rescores} rescore launches for {engine_launches} "
+              f"searches")
+    with phase("r"):
+        rescore_err, rescore_timing = phase_rescore_vs_plain(rows, store, device)
     with phase("p"):
         phase_profile(rows, store, device)
     with phase("s"):
@@ -2685,7 +2832,7 @@ def main() -> int:
         # around its search: the unsharded references, the timing loops and
         # the dry run count nowhere
         s_bitplane, s_bitplane_launches = phase_sharded_bitplane(rows, store, device)
-        s_launches = {"bitplane_phase1": s_bitplane_launches, "dense_phase1": 0}
+        s_launches = {**s_bitplane_launches, "dense_phase1": 0}
     del store
     torch.cuda.empty_cache()
 
@@ -2707,7 +2854,9 @@ def main() -> int:
     run_tmp = tempfile.TemporaryDirectory()
     with phase("d"):
         smoke_path = write_server_library(device, SERVER_ROWS, run_tmp.name)
-        server_launches, n_requests = phase_server(device, smoke_path, SERVER_ROWS)
+        served, n_requests = phase_server(device, smoke_path, SERVER_ROWS)
+        server_launches = served["bitplane_phase1"]
+        server_rescores = served["bitplane_rescore"]
         check(server_launches > 0, "(d) launched no kernel")
         check(n_requests >= 4, "fewer than 4 requests answered")
     torch.cuda.empty_cache()
@@ -2736,17 +2885,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with phase("f"):
-        folded_server_launches, n_requests = phase_server(
+        served, n_requests = phase_server(
             device, smoke_path, SERVER_ROWS, ("--fold", "4"), fold=4, tag="f",
             kernel="dense_phase1", socket_dir=run_tmp.name,
         )
+        folded_server_launches = served["dense_phase1"]
         check(folded_server_launches > 0, "(f) launched no dense kernel")
         check(n_requests >= 6, "fewer than 6 requests answered")
     torch.cuda.empty_cache()
 
     with phase("g"):
-        fold_launches = phase_bitplane_fold(device, LIB_ROWS)
-        check(fold_launches > 0, "(g) launched no kernel")
+        folded = phase_bitplane_fold(device, LIB_ROWS)
+        fold_launches = folded["bitplane_phase1"]
+        fold_rescores = folded["bitplane_rescore"]
     torch.cuda.empty_cache()
 
     with phase("s"):
@@ -2755,7 +2906,8 @@ def main() -> int:
         phase_dryrun(device)
         p50, two_process_launches = phase_two_process_server(
             device, smoke_path, run_tmp.name)
-        s_launches["bitplane_phase1"] += two_process_launches
+        for kernel, n in two_process_launches.items():
+            s_launches[kernel] += n
         check(all(s_launches.values()), f"(s) launched no kernel: {s_launches}")
     torch.cuda.empty_cache()
 
@@ -2776,7 +2928,7 @@ def main() -> int:
     # (t): the measurement entry points, each a subprocess that counts its
     # own launches and reports them (the bench its whole run, the servers
     # their /stats over the requests)
-    t_launches = {"bitplane_phase1": 0, "dense_phase1": 0}
+    t_launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
     bench_runs = phase_bench(t_launches)
     with tempfile.TemporaryDirectory() as tmp:
         with phase("t3"):
@@ -2791,7 +2943,7 @@ def main() -> int:
 
     # (u): the port's last tools, each a subprocess reporting its own
     # launches (northstar its server's /stats)
-    u_launches = {"bitplane_phase1": 0, "dense_phase1": 0}
+    u_launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
     with tempfile.TemporaryDirectory() as tmp:
         with phase("u1"):
             northstar = phase_northstar(tmp, u_launches)
@@ -2804,7 +2956,8 @@ def main() -> int:
 
     log(f"main path kernel launches: bitplane engine {engine_launches}, "
         f"server {server_launches}, fold 4 {fold_launches}, entry points "
-        f"{entry_points['launches']}, sharded {s_launches['bitplane_phase1']}, "
+        f"{entry_points['launches']['bitplane_phase1']}, sharded "
+        f"{s_launches['bitplane_phase1']}, "
         f"first requests {w_launches['bitplane_phase1']}, profiled "
         f"{x_launches['bitplane_phase1']}; "
         f"dense engine {dense_engine_launches}, server {folded_server_launches}, "
@@ -2814,7 +2967,13 @@ def main() -> int:
         f"{probe_launches}; measurement entry points (t) bitplane "
         f"{t_launches['bitplane_phase1']}, dense {t_launches['dense_phase1']}; "
         f"last tools (u) bitplane {u_launches['bitplane_phase1']}, dense "
-        f"{u_launches['dense_phase1']}")
+        f"{u_launches['dense_phase1']}; rescore: engine {engine_rescores}, "
+        f"server {server_rescores}, fold 4 {fold_rescores}, entry points "
+        f"{entry_points['launches']['bitplane_rescore']}, sharded "
+        f"{s_launches['bitplane_rescore']}, first requests "
+        f"{w_launches['bitplane_rescore']}, profiled "
+        f"{x_launches['bitplane_rescore']}, (t) {t_launches['bitplane_rescore']}, "
+        f"(u) {u_launches['bitplane_rescore']}")
     split = probes["probe_fold_batch"][-1]
     wordsel = probes["probe_wordsel"][-1]
     log(f"last tools ({gpu_line()}): northstar {northstar['rows']:,} rows fold 4 "
@@ -2907,7 +3066,8 @@ def main() -> int:
         "dense_ms_same_store": mxu["dense_ms"],
     })
     k1 = entry("bitplane_phase1", engine_launches + server_launches + fold_launches
-               + entry_points["launches"] + s_launches["bitplane_phase1"]
+               + entry_points["launches"]["bitplane_phase1"]
+               + s_launches["bitplane_phase1"]
                + w_launches["bitplane_phase1"] + x_launches["bitplane_phase1"]
                + t_launches["bitplane_phase1"]
                + u_launches["bitplane_phase1"],
@@ -2919,7 +3079,14 @@ def main() -> int:
                + x_launches["dense_phase1"]
                + t_launches["dense_phase1"] + u_launches["dense_phase1"],
                max(max_err2, fold_err), timing2)
-    log(json.dumps({"kernels": [k1, k2, k3]}))
+    # selection stage 3 of every bitplane search, counted where kernel 1 is
+    k1r = entry("bitplane_rescore", engine_rescores + server_rescores
+                + fold_rescores + entry_points["launches"]["bitplane_rescore"]
+                + s_launches["bitplane_rescore"] + w_launches["bitplane_rescore"]
+                + x_launches["bitplane_rescore"] + t_launches["bitplane_rescore"]
+                + u_launches["bitplane_rescore"],
+                rescore_err, rescore_timing)
+    log(json.dumps({"kernels": [k1, k1r, k2, k3]}))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -85,7 +85,7 @@ from concurrent.futures import ThreadPoolExecutor
 from ..serve.batching import DEFAULT_RESULT_TIMEOUT_S
 from ..serve.spans import STARTUP
 
-SERVING_KERNELS = ("bitplane_phase1", "dense_phase1")
+SERVING_KERNELS = ("bitplane_phase1", "bitplane_rescore", "dense_phase1")
 
 
 def parse_args(argv=None):

@@ -218,7 +218,7 @@ class DatabaseRegistry:
             log.info("warmed up %s (%.2fs)", name, time.monotonic() - t0)
 
     def stats(self) -> dict:
-        from ..ops import bitplane_phase1, dense_phase1
+        from ..ops import bitplane_phase1, bitplane_rescore, dense_phase1
 
         with self._stats_lock:
             searches, batches = self.search_count, self.batch_count
@@ -245,6 +245,7 @@ class DatabaseRegistry:
             "total_search_seconds": round(seconds, 6),
             "kernel_launches": {
                 "bitplane_phase1": bitplane_phase1.launch_count(),
+                "bitplane_rescore": bitplane_rescore.launch_count(),
                 "dense_phase1": dense_phase1.launch_count(),
             },
             **served,

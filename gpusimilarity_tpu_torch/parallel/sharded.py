@@ -11,7 +11,8 @@ summed in int64. Two stores:
 * :class:`BitplaneStore`: planes stored plain plane-major,
   ``int32 [(bitcount + 1), n_padded / 32]`` in global column order, with
   the all-zero sentinel plane last; popcounts a flat ``int16 [n_padded]``.
-  Searched by :func:`bitplane_local_topk` (kernel 1).
+  Searched by :func:`bitplane_local_topk` (kernel 1, then the rescore
+  kernel of selection stage 3).
 * :class:`DenseStore`: the (folded) packed words planar,
   ``int32 [Wf, n_padded]``, column = row index; popcounts ``int16
   [n_padded]``, or None for a popless store. Searched by
@@ -44,20 +45,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.bitplane import (
-    counters_to_counts,
-    planes_from_rows,
-    wallace_popcount_planes,
-)
+from ..ops.bitplane import planes_from_rows
 from ..ops import fold as fold_ops
 from ..ops.bitplane_phase1 import BLOCK_WORDS, bitplane_phase1_batched
+from ..ops.bitplane_rescore import bitplane_rescore
 from ..ops.dense_phase1 import dense_phase1
 from ..ops.scan import (
     TANIMOTO,
     popcount_rows,
     popcount_words,
     score_columns,
-    similarity_from_counts,
 )
 from ..ops.topk import merge_topk, topk_lowest_index
 from .mesh import Mesh, resolve_device
@@ -237,19 +234,13 @@ def rescore_words(
     beta: float = 1.0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Selection stage 3: the exact scores of the 32 columns of each
-    selected word (the query's planes gathered, summed by the carry-save
-    tree) and their lowest-index top-k, ``(values (B, k), indices (B, k))``."""
-    dev = store.planes.device
-    # (P, B, k_words) plane words
-    pw = store.planes[plane_idx.to(torch.int64).T[:, :, None], w_sel[None, :, :]]
-    common = counters_to_counts(wallace_popcount_planes(pw))  # (B, kw*32)
-    cols = (
-        w_sel[:, :, None] * 32 + torch.arange(32, device=dev)
-    ).reshape(w_sel.shape[0], -1)
-    s = similarity_from_counts(
-        common, store.popcounts[cols], query_pops, similarity, alpha, beta
+    selected word (:func:`~..ops.bitplane_rescore.bitplane_rescore`: one
+    kernel launch on a card, the carry-save chain on the host) and their
+    lowest-index top-k, ``(values (B, k), indices (B, k))``."""
+    s, cols = bitplane_rescore(
+        store.planes, store.popcounts, plane_idx, query_pops, w_sel,
+        store.n_valid, similarity, alpha, beta,
     )
-    s = torch.where(cols < store.n_valid, s, NEG_INF)
     return _topk_padded(s, cols, k)
 
 

@@ -9,7 +9,8 @@ names, plus ``card`` (the card's name and power limit as ``nvidia-smi``
 gives them, or ``cpu``), ``host_rescore`` (``native`` when
 ``native/libtpusim_native.so`` is built, else ``numpy``: a fold-4 search
 rescores its candidates on the host, so its latency means nothing without
-it) and ``kernel_launches`` (each phase-1 kernel's launches over the run).
+it) and ``kernel_launches`` (each phase-1 kernel's and the bitplane
+rescore kernel's launches over the run).
 Everything else goes to stderr. The headline is fingerprints scanned per
 second per card for one top-128 query, against the reference's 1.25e9
 fingerprints/s per V100 (1e9 compounds / 0.2 s / 4 GPUs, BASELINE.md).
@@ -69,7 +70,7 @@ import numpy as np
 import torch
 
 from ..models.fingerprint_db import _k_bucket
-from ..ops import bitplane_phase1, dense_phase1
+from ..ops import bitplane_phase1, bitplane_rescore, dense_phase1
 from ..ops.bitplane import PLANE_BUCKETS, query_plane_indices
 from ..ops.fold import fold_words, overfetch_count
 from ..ops.scan import popcount_rows, popcount_rows_np, scores_np
@@ -567,6 +568,7 @@ def main(argv=None) -> int:
     last_err = None
     for rows in (rows_env, *fallbacks):
         bitplane_phase1.reset_launch_count()
+        bitplane_rescore.reset_launch_count()
         dense_phase1.reset_launch_count()
         try:
             payload = _run_fold(rows, fold, mesh) if fold > 1 else _run(rows, mesh)
@@ -578,6 +580,7 @@ def main(argv=None) -> int:
         else:
             payload["kernel_launches"] = {
                 "bitplane_phase1": bitplane_phase1.launch_count(),
+                "bitplane_rescore": bitplane_rescore.launch_count(),
                 "dense_phase1": dense_phase1.launch_count(),
             }
             print(json.dumps(payload), flush=True)

@@ -40,6 +40,7 @@ import torch
 
 from ..models.fingerprint_db import FingerprintDB, _k_bucket
 from ..ops import bitplane_phase1 as ph1
+from ..ops import bitplane_rescore
 from ..ops import fold as fold_ops
 from ..ops.bitplane import query_plane_indices
 from ..ops.scan import popcount_rows_np
@@ -121,6 +122,7 @@ def main(argv=None) -> int:
     args = parse_args(argv, __doc__.splitlines()[0])
     s = folded_search_setup(args)
     ph1.reset_launch_count()
+    bitplane_rescore.reset_launch_count()
     p1 = stage_line(s, args, "phase1", lambda: ph1.bitplane_phase1_batched(
         s.store.planes, s.store.popcounts, s.idx, s.qpops, s.cutoffs, s.ab,
         s.store.n_valid))
@@ -134,7 +136,8 @@ def main(argv=None) -> int:
         "selection_ms": round(local - p1, 4),
         "host_and_rescore_ms": round(engine - local, 4),
         "kernel_bound_ms": round(s.bound_ms, 4),
-        "kernel_launches": {"bitplane_phase1": ph1.launch_count()},
+        "kernel_launches": {"bitplane_phase1": ph1.launch_count(),
+                            "bitplane_rescore": bitplane_rescore.launch_count()},
         "card": s.card,
     }), flush=True)
     return 0

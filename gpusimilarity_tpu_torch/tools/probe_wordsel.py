@@ -13,9 +13,10 @@ each through the function the search calls:
   per 2048 columns) to the fetch width;
 * s2: s1 and ``select_words``, the gather of those blocks' word maxima and
   their top-k;
-* s3: s2 and ``rescore_words``, the gather of the selected words of the
-  query's planes, the carry-save sums (``wallace_popcount_planes``), the
-  scores and the column top-k: the whole chain.
+* s3: s2 and ``rescore_words``, the scores of the selected words'
+  columns (on a card one launch of the kernel ``csrc/bitplane_rescore.cu``;
+  on the host the carry-save sums of ``wallace_popcount_planes``) and the
+  column top-k: the whole chain.
 
 The JAX tool also times ``jax.lax.approx_max_k`` on the block maxima for
 comparison. PyTorch has no approximate top-k, and a library call in its
@@ -24,7 +25,7 @@ place would not be the same comparison, so its line says it is absent.
 Each stage is the median of ``--repeats`` calls between CUDA events, beside
 the same-run floor and the stage's own byte bound (:func:`stage_bytes` over
 3.35 TB/s); one JSON line per stage, then one with the deltas and the
-kernel's launches. Alone, a stage also waits for the host to launch its
+kernels' launches. Alone, a stage also waits for the host to launch its
 small operations, which inside the search overlap the kernel before them.
 ``--cpu_only`` runs the plain versions on the host.
 """
@@ -35,6 +36,7 @@ import json
 import sys
 
 from ..ops import bitplane_phase1 as ph1
+from ..ops import bitplane_rescore
 from ..parallel.sharded import rescore_words, select_blocks, select_words
 from .probe_fold_batch import folded_search_setup, parse_args, stage_line
 from .probe_mxu import bound
@@ -59,6 +61,7 @@ def main(argv=None) -> int:
     args = parse_args(argv, __doc__.splitlines()[0])
     s = folded_search_setup(args)
     ph1.reset_launch_count()
+    bitplane_rescore.reset_launch_count()
     block_max, _counts, colmax = ph1.bitplane_phase1_batched(
         s.store.planes, s.store.popcounts, s.idx, s.qpops, s.cutoffs, s.ab,
         s.store.n_valid)
@@ -89,7 +92,8 @@ def main(argv=None) -> int:
         "batch": args.batch, "k_fetch": k, "n_blocks": block_max.shape[1],
         "s1_ms": round(t1, 4), "s2_delta_ms": round(t2 - t1, 4),
         "s3_delta_ms": round(t3 - t2, 4),
-        "kernel_launches": {"bitplane_phase1": ph1.launch_count()},
+        "kernel_launches": {"bitplane_phase1": ph1.launch_count(),
+                            "bitplane_rescore": bitplane_rescore.launch_count()},
         "card": s.card,
     }), flush=True)
     return 0

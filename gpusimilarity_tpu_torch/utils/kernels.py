@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 )
 
 # every kernel of the package, by source name
-KERNELS = ("bitplane_phase1", "dense_phase1", "mxu_phase1")
+KERNELS = ("bitplane_phase1", "bitplane_rescore", "dense_phase1", "mxu_phase1")
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}

@@ -191,7 +191,8 @@ def test_bench_cpu_only_prints_one_exact_line(fold, mode):
         assert p["oracle_exact_topk_queries"] == 33
         assert p["oracle_fold1_seq_mismatches"] == 0
     # the plain versions are not kernels: nothing counts as a launch
-    assert p["kernel_launches"] == {"bitplane_phase1": 0, "dense_phase1": 0}
+    assert p["kernel_launches"] == {"bitplane_phase1": 0, "bitplane_rescore": 0,
+                                    "dense_phase1": 0}
 
 
 def test_bench_dense_fold_raises_as_the_root_bench():

@@ -375,7 +375,8 @@ def test_registry_stats_report_the_shard_count(library):
     assert stats["device"] == "cpu" and stats["processes"] == 1
     r = reg.search_databases(["lib"], ["k"], library.packed_words()[7], 3)
     assert r.ids[0] == "TEST00000007"
-    assert stats["kernel_launches"].keys() == {"bitplane_phase1", "dense_phase1"}
+    assert stats["kernel_launches"].keys() == {"bitplane_phase1", "bitplane_rescore",
+                                               "dense_phase1"}
 
 
 def test_dryrun_multichip_at_four_cpu_shards(capsys):

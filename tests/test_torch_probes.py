@@ -46,7 +46,8 @@ def test_probe_fold_batch_splits_the_search():
     assert split["probe"] == "probe_fold_batch"
     assert split["selection_ms"] == pytest.approx(
         stages[1]["ms"] - stages[0]["ms"], abs=2e-4)
-    assert split["kernel_launches"] == {"bitplane_phase1": 0}  # plain version
+    assert split["kernel_launches"] == {"bitplane_phase1": 0,  # plain versions
+                                        "bitplane_rescore": 0}
 
 
 def test_probe_wordsel_times_each_stage():

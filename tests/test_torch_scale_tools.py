@@ -172,7 +172,7 @@ def test_northstar_matches_the_jax_tool(tmp_path):
     assert got["exactness_checks_passed"] == "4/4"
     assert got["prewarm"].startswith("prewarm")
     assert got["card"] == "cpu" and set(got["kernel_launches"]) == {
-        "bitplane_phase1", "dense_phase1"}
+        "bitplane_phase1", "bitplane_rescore", "dense_phase1"}
 
 
 def test_chem_scale_matches_the_jax_tool(tmp_path):

@@ -108,7 +108,8 @@ def test_loadtest_miniature_is_exact(preset, tmp_path, capsys):
     assert p["cold_samples"] == p["warm_samples"] == 256
     assert p["warm_qps"] > 0 and p["warm_p99_ms"] >= p["warm_p50_ms"]
     assert p["rows"] == 20000 and p["card"] == "cpu"
-    assert p["kernel_launches"] == {"bitplane_phase1": 0, "dense_phase1": 0}
+    assert p["kernel_launches"] == {"bitplane_phase1": 0, "bitplane_rescore": 0,
+                                    "dense_phase1": 0}
 
 
 def _virtual_library(path: Path, n: int):
