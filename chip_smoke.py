@@ -183,6 +183,7 @@ import numpy as np
 import torch
 
 from gpusimilarity_tpu_torch.serve import profiler
+from gpusimilarity_tpu_torch.utils import kernels
 from gpusimilarity_tpu_torch.tools.probe_mxu import time_ms as median_ms
 from gpusimilarity_tpu_torch.tools.probe_mxu import timed
 
@@ -202,6 +203,7 @@ KERNELS = {
     "mxu_phase1": ("gpusimilarity_tpu_torch/csrc/mxu_phase1.cu",
                    "gpusimilarity_tpu/ops/pallas_mxu.py:40"),
 }
+assert tuple(KERNELS) == kernels.KERNELS, "a kernel without its TPU counterpart"
 REFERENCE_FOLD4_MS = 451.72  # 4x V100, 1.02B rows fold 4 (BASELINE.md)
 PLAIN_PREFIX_COLS = 1 << 27  # (b2): B=32 plain comparisons past the first
 PLAIN_PREFIX_MXU = 1 << 25  # (m): plain comparisons other than B=1 and B=32
@@ -289,7 +291,7 @@ def phase_build():
     """(a) the four kernels, one nvcc each, and beside them the native host
     runtime, which must load: built at first use from ``native/`` in a
     checkout that has no hand-built library (a ``git archive`` has none)."""
-    from gpusimilarity_tpu_torch.utils import kernels, native
+    from gpusimilarity_tpu_torch.utils import native
 
     t0 = time.monotonic()
     host_runtime = threading.Thread(target=native.available)
@@ -946,9 +948,8 @@ def phase_server(device, path, n_rows, server_args=(), fold=1, tag="d",
             count += _check_socket_requests(
                 Path(socket_dir) / SOCKET_NAME, rows, pops, device, fold, tag)
         stats = _get(port, "/stats")
-        names = [kernel] + (["bitplane_rescore"] if kernel == "bitplane_phase1" else [])
         launches = {name: stats["kernel_launches"][name]
-                    - stats0["kernel_launches"][name] for name in names}
+                    - stats0["kernel_launches"][name] for name in SERVED_KERNELS[kernel]}
         passes = stats["batches"] - stats0["batches"]
         if kernel == "bitplane_phase1":
             check(launches["bitplane_rescore"] == launches[kernel] == passes - 1,
@@ -1374,8 +1375,6 @@ def phase_bitplane_fold(device, n_rows, fold=4):
     checked by (e)'s rules; returns the launches of the bitplane kernel and
     of the rescore, one of each."""
     from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
-    from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
-    from gpusimilarity_tpu_torch.ops import bitplane_rescore
     from gpusimilarity_tpu_torch.ops.fold import fold_words
     from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows, scores_np
     from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
@@ -1400,13 +1399,11 @@ def phase_bitplane_fold(device, n_rows, fold=4):
     rows = pick_query_rows(32, n_rows, fold, seed=SEED, rng_seed=SEED + 9)
     qfull = virtual_rows_np(rows, seed=SEED)
     cut = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
-    ph1.reset_launch_count()
-    bitplane_rescore.reset_launch_count()
+    kernels.reset_launches()
     t0 = time.perf_counter()
     res = db.search_batch(qfull, 128, cut, "g", return_indices=True)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {"bitplane_phase1": ph1.launch_count(),
-                "bitplane_rescore": bitplane_rescore.launch_count()}
+    launches = kernels.launch_counts(kernels.PASS_KERNELS["bitplane"])
     check(list(launches.values()) == [1, 1], f"[g] launches {launches}")
     folded = virtual_folded_rows(n_rows, fold, 32, SEED, device)
     qf = np.ascontiguousarray(fold_words(qfull, fold))
@@ -1458,8 +1455,6 @@ def phase_sharded_bitplane(rows, store, device, reps=10):
     every index carrying its score; one launch of kernel 1 and one of the
     rescore per shard; the search's wall time at 4 shards and at 1. Returns
     the times and the launches of each."""
-    from gpusimilarity_tpu_torch.ops import bitplane_phase1 as ph1
-    from gpusimilarity_tpu_torch.ops import bitplane_rescore
     from gpusimilarity_tpu_torch.ops.bitplane import query_plane_indices
     from gpusimilarity_tpu_torch.ops.scan import (
         popcount_rows,
@@ -1484,19 +1479,20 @@ def phase_sharded_bitplane(rows, store, device, reps=10):
     idx = pick_queries(rows, pops, n, 32, 64, SEED + 5)
     q32 = rows[idx].cpu().numpy().view(np.uint32)
     cut32 = np.tile(np.float32([0.0, 0.3, 0.5, 0.2]), 8)
-    out, launches = {}, {"bitplane_phase1": 0, "bitplane_rescore": 0}
+    names = kernels.PASS_KERNELS["bitplane"]
+    out, launches = {}, dict.fromkeys(names, 0)
     for b in (1, 32):
         q, cut = q32[:b], cut32[:b]
         plane_idx, _bucket = query_plane_indices(q, store.bitcount)
         qp = popcount_rows_np(q)
         v1, _i1, c1 = sharded_local_topk(one, plane_idx, qp, cut, 128)
-        before = ph1.launch_count(), bitplane_rescore.launch_count()
+        before = kernels.launch_counts(names)
         v4, i4, c4 = sharded_local_topk(four, plane_idx, qp, cut, 128)
         sync(device)
-        per_search = ph1.launch_count() - before[0]
-        per_search_rescore = bitplane_rescore.launch_count() - before[1]
-        launches["bitplane_phase1"] += per_search
-        launches["bitplane_rescore"] += per_search_rescore
+        per_search, per_search_rescore = (
+            kernels.launches(name) - before[name] for name in names)
+        launches[names[0]] += per_search
+        launches[names[1]] += per_search_rescore
         check(per_search == per_search_rescore == S_BITPLANE_SHARDS,
               f"[s] B={b}: {per_search} kernel 1 and {per_search_rescore} "
               f"rescore launches for {S_BITPLANE_SHARDS} shards")
@@ -1573,10 +1569,10 @@ def phase_sharded_dense(path, ref, device, reps=5):
     out, launches = {}, 0
     qf, cut, k_fetch = ref["qf"], ref["cut"], ref["k_fetch"]
     for b in (1, 32):
-        before = ph2.launch_count()
+        before = kernels.launches(ph2.KERNEL)
         res = db.search_batch(ref["qfull"][:b], 128, cut[:b], db.dbkey,
                               return_indices=True)
-        per_search = ph2.launch_count() - before
+        per_search = kernels.launches(ph2.KERNEL) - before
         launches += per_search
         check(per_search == S_DENSE_SHARDS * -(-b // 32),
               f"[s] B={b}: {per_search} dense launches for {S_DENSE_SHARDS} shards")
@@ -1610,8 +1606,8 @@ def phase_sharded_server_stats(device, path):
     rows, pops = server_rows(device, SERVER_ROWS)
     served = {}
     for shards, fold, names in (
-        (S_BITPLANE_SHARDS, None, ("bitplane_phase1", "bitplane_rescore")),
-        (S_DENSE_SHARDS, 4, ("dense_phase1",)),
+        (S_BITPLANE_SHARDS, None, kernels.PASS_KERNELS["bitplane"]),
+        (S_DENSE_SHARDS, 4, kernels.PASS_KERNELS["dense"]),
     ):
         reg = DatabaseRegistry.from_fsim_files(
             [str(path)], mesh=make_mesh([device] * shards), fold_factor=fold)
@@ -1701,7 +1697,7 @@ def phase_two_process_server(device, path, tmp, server_args=()):
                 _check_socket_requests(sock, rows, pops, device, 1, "s")
                 l1 = _get(port, "/stats")["kernel_launches"]
                 launches = {name: l1[name] - l0[name]
-                            for name in ("bitplane_phase1", "bitplane_rescore")}
+                            for name in kernels.PASS_KERNELS["bitplane"]}
             p50[processes] = _round_trips(port, sock, rows, SERVER_ROWS)
         log(f"[s] {processes}-process server, B=1 k=20 round trip p50 over "
             f"{S_ROUND_TRIPS} requests: HTTP {p50[processes][0]:.3f} ms, socket "
@@ -1761,8 +1757,7 @@ def _burst(port, forms):
 
 
 # the kernels a server launches in a pass, by the kernel 1 of its scan mode
-SERVED_KERNELS = {"bitplane_phase1": ("bitplane_phase1", "bitplane_rescore"),
-                  "dense_phase1": ("dense_phase1",)}
+SERVED_KERNELS = {names[0]: names for names in kernels.PASS_KERNELS.values()}
 
 
 def _launched(before, after, kernel, tag):
@@ -1828,7 +1823,7 @@ def phase_first_requests(device, path, server_args=()):
               "return_count": 20, "similarity_cutoff": 0, "dbnames": "smoke",
               "dbkeys": "smoke"} for i in picks]
     records = []
-    launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
+    launches = dict.fromkeys(kernels.SERVED, 0)
     for label, fold, kernel, flags in W_SERVERS:
         for warm in (False, True):
             logs = []
@@ -2063,7 +2058,7 @@ def phase_profiled_servers(device, path, tmp, server_args=()):
               "dbkeys": "smoke"} for i in picks]
     trace_dir = Path(tmp) / "traces"
     records = {}
-    launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
+    launches = dict.fromkeys(kernels.SERVED, 0)
     for label, fold, kernel, kernel_name, flags, cold in X_SERVERS:
         root = _package_copy(tmp) if cold else ROOT
         profiler_port = _free_port()
@@ -2809,16 +2804,15 @@ def main() -> int:
 
     with phase("b"):
         rows, store = phase_library(LIB_ROWS, device)
-        before = ph1.launch_count()
+        before = kernels.launches(ph1.KERNEL)
         max_err, timing = phase_kernel_vs_plain(rows, store, device)
-        check(ph1.launch_count() > before, "(b) launched no kernel")
+        check(kernels.launches(ph1.KERNEL) > before, "(b) launched no kernel")
 
     with phase("c"):
-        ph1.reset_launch_count()  # the bitplane main path starts here
-        bitplane_rescore.reset_launch_count()
+        kernels.reset_launches()  # the bitplane main path starts here
         latency = phase_engine(rows, store, device)
-        engine_launches = ph1.launch_count()
-        engine_rescores = bitplane_rescore.launch_count()
+        engine_launches = kernels.launches(ph1.KERNEL)
+        engine_rescores = kernels.launches(bitplane_rescore.KERNEL)
         check(engine_launches > 0, "(c) launched no kernel")
         check(engine_rescores == engine_launches,
               f"(c) {engine_rescores} rescore launches for {engine_launches} "
@@ -2838,15 +2832,15 @@ def main() -> int:
 
     with phase("m"):
         dstore = build_store(rows)
-        before = ph3.launch_count()
+        before = kernels.launches(ph3.KERNEL)
         mxu = phase_mxu_vs_plain(rows, dstore, device)
-        check(ph3.launch_count() > before, "(m) launched no kernel")
+        check(kernels.launches(ph3.KERNEL) > before, "(m) launched no kernel")
         fold_err = phase_dense_folds(rows, device)
         del rows, dstore
         torch.cuda.empty_cache()
-        ph3.reset_launch_count()  # the matrix-product main path: the probe
+        kernels.reset_launches()  # the matrix-product main path: the probe
         probe_records = phase_probe(device)
-        probe_launches = ph3.launch_count()
+        probe_launches = kernels.launches(ph3.KERNEL)
         check(probe_launches > 0, "(m) the probe launched no kernel")
         check(len(probe_records) == 12, f"(m) {len(probe_records)} probe records")
     torch.cuda.empty_cache()
@@ -2863,15 +2857,15 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         with phase("e"):
-            ph2.reset_launch_count()  # the dense main path starts here
+            kernels.reset_launches()  # the dense main path starts here
             db = phase_folded_library(device, FOLDED_ROWS, tmp)
             folded_latency = phase_folded_engine(db, device)
-            dense_engine_launches = ph2.launch_count()
+            dense_engine_launches = kernels.launches(ph2.KERNEL)
             check(dense_engine_launches > 0, "(e) launched no dense kernel")
         with phase("b2"):
-            before = ph2.launch_count()
+            before = kernels.launches(ph2.KERNEL)
             max_err2, timing2 = phase_dense_kernel_vs_plain(db.store.shards[0], device)
-            check(ph2.launch_count() > before, "(b2) launched no kernel")
+            check(kernels.launches(ph2.KERNEL) > before, "(b2) launched no kernel")
         with phase("p2"):
             phase_profile_dense(db.store.shards[0], device)
         with phase("s"):
@@ -2928,7 +2922,7 @@ def main() -> int:
     # (t): the measurement entry points, each a subprocess that counts its
     # own launches and reports them (the bench its whole run, the servers
     # their /stats over the requests)
-    t_launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
+    t_launches = dict.fromkeys(kernels.SERVED, 0)
     bench_runs = phase_bench(t_launches)
     with tempfile.TemporaryDirectory() as tmp:
         with phase("t3"):
@@ -2943,7 +2937,7 @@ def main() -> int:
 
     # (u): the port's last tools, each a subprocess reporting its own
     # launches (northstar its server's /stats)
-    u_launches = {"bitplane_phase1": 0, "bitplane_rescore": 0, "dense_phase1": 0}
+    u_launches = dict.fromkeys(kernels.SERVED, 0)
     with tempfile.TemporaryDirectory() as tmp:
         with phase("u1"):
             northstar = phase_northstar(tmp, u_launches)

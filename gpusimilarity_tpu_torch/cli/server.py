@@ -85,8 +85,6 @@ from concurrent.futures import ThreadPoolExecutor
 from ..serve.batching import DEFAULT_RESULT_TIMEOUT_S
 from ..serve.spans import STARTUP
 
-SERVING_KERNELS = ("bitplane_phase1", "bitplane_rescore", "dense_phase1")
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(
@@ -191,7 +189,7 @@ def _build_kernels(log) -> None:
 
     # the kernels the searches launch; the probe's matrix-product kernel
     # serves no request
-    for name, build in kernels.load_all(SERVING_KERNELS).items():
+    for name, build in kernels.load_all(kernels.SERVED).items():
         log.info("%s kernel ready (%s, built in %.1fs)", name, build.path.name,
                  build.seconds)
 

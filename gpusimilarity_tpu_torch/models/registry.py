@@ -28,6 +28,7 @@ from ..ops.scan import TANIMOTO
 from ..parallel import multihost
 from ..parallel.mesh import Mesh, auto_fold_factor, resolve_mesh
 from ..serve import spans
+from ..utils import kernels
 from ..utils.fsim import FingerprintData
 from ..utils.tfsim import load_any
 from .fingerprint_db import FingerprintDB
@@ -218,8 +219,6 @@ class DatabaseRegistry:
             log.info("warmed up %s (%.2fs)", name, time.monotonic() - t0)
 
     def stats(self) -> dict:
-        from ..ops import bitplane_phase1, bitplane_rescore, dense_phase1
-
         with self._stats_lock:
             searches, batches = self.search_count, self.batch_count
             seconds = self.total_search_seconds
@@ -243,11 +242,7 @@ class DatabaseRegistry:
             "searches": searches,
             "batches": batches,
             "total_search_seconds": round(seconds, 6),
-            "kernel_launches": {
-                "bitplane_phase1": bitplane_phase1.launch_count(),
-                "bitplane_rescore": bitplane_rescore.launch_count(),
-                "dense_phase1": dense_phase1.launch_count(),
-            },
+            "kernel_launches": kernels.launch_counts(),
             **served,
         }
 

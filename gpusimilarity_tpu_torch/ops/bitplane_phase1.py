@@ -16,38 +16,20 @@ kernel matches bit for bit on the card.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from ..utils import kernels
 from .bitplane import counters_to_counts, wallace_popcount_planes
 from .scan import TANIMOTO, TVERSKY, similarity_from_counts
+
+KERNEL = "bitplane_phase1"  # csrc/bitplane_phase1.cu
 
 # selection block: 2048 columns = 64 plane words
 BLOCK_WORDS = 64
 # the longest plane list the kernel takes per query (its count fields have
 # at most 12 bits); the plain version takes any
 KERNEL_MAX_PLANES = 4095
-
-_LAUNCH_LOCK = threading.Lock()
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    with _LAUNCH_LOCK:
-        _launches = 0
-
-
-def _count_launch() -> None:
-    global _launches
-    with _LAUNCH_LOCK:
-        _launches += 1
 
 
 def bitplane_phase1_plain(
@@ -92,28 +74,10 @@ def bitplane_phase1_plain(
     return colmax, counts.to(torch.int32)
 
 
-_FN = None
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from ..utils import kernels
-
-        lib = kernels.load("bitplane_phase1").lib
-        fn = lib.gpusim_bitplane_phase1
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 10 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ptr,
-        ]
-        fn.restype = ctypes.c_int
-        lib.gpusim_bitplane_scratch_entries.argtypes = [ctypes.c_int] * 3
-        lib.gpusim_bitplane_scratch_entries.restype = ctypes.c_int
-        lib.gpusim_error_string.argtypes = [ctypes.c_int]
-        lib.gpusim_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.gpusim_error_string, lib.gpusim_bitplane_scratch_entries)
-    return _FN
+_ARGTYPES = [ctypes.c_void_p] * 10 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+]
 
 
 def bitplane_phase1_kernel(planes, pops, plane_idx, query_pops, cutoffs,
@@ -137,7 +101,9 @@ def bitplane_phase1_kernel(planes, pops, plane_idx, query_pops, cutoffs,
         raise ValueError(
             f"plane bucket {p} > {KERNEL_MAX_PLANES} is not supported"
         )
-    fn, err, scratch_entries = _kernel_fn()
+    fn = kernels.bind(KERNEL, "gpusim_bitplane_phase1", _ARGTYPES)
+    scratch_entries = kernels.bind(KERNEL, "gpusim_bitplane_scratch_entries",
+                                   [ctypes.c_int] * 3)
     tversky = int(similarity == TVERSKY)
     colmax = torch.empty((b, m), dtype=torch.float32, device=planes.device)
     counts = torch.zeros(b, dtype=torch.int32, device=planes.device)
@@ -146,22 +112,13 @@ def bitplane_phase1_kernel(planes, pops, plane_idx, query_pops, cutoffs,
     lists = torch.empty((b, scratch_entries(p, planes.shape[0], tversky)),
                         dtype=torch.int16, device=planes.device)
     lens = torch.empty(b, dtype=torch.int32, device=planes.device)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    # the C launcher works on the thread's current device: make it the
-    # tensors' (a shard on another card, a worker thread)
-    with torch.cuda.device(planes.device):
-        rc = fn(
-            planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
-            query_pops.data_ptr(), cutoffs.data_ptr(), alpha_beta.data_ptr(),
-            colmax.data_ptr(), counts.data_ptr(), lists.data_ptr(),
-            lens.data_ptr(), m, b, p, planes.shape[0], int(n_valid), tversky,
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"bitplane phase-1 kernel launch failed: {err(rc).decode()}"
-        )
-    _count_launch()
+    kernels.launch(
+        KERNEL, fn, planes.device,
+        planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
+        query_pops.data_ptr(), cutoffs.data_ptr(), alpha_beta.data_ptr(),
+        colmax.data_ptr(), counts.data_ptr(), lists.data_ptr(),
+        lens.data_ptr(), m, b, p, planes.shape[0], int(n_valid), tversky,
+    )
     return colmax, counts
 
 
@@ -194,20 +151,13 @@ def bitplane_phase1_batched(
     b, _ = plane_idx.shape
     m = planes.shape[1]
     args = (planes, pops, plane_idx, query_pops, cutoffs, alpha_beta)
-    for t, dtype, shape in zip(
+    kernels.check_inputs(zip(
         args,
         (torch.int32, torch.int16, torch.int32, torch.int32, torch.float32,
          torch.float32),
         ((planes.shape[0], m), (32 * m,), (b, plane_idx.shape[1]), (b,), (b,),
          (2,)),
-    ):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"expected contiguous {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if t.device != planes.device:
-            raise ValueError("all inputs must be on one device")
+    ))
     if m % BLOCK_WORDS:
         raise ValueError(f"plane width {m} is not a multiple of {BLOCK_WORDS}")
     if planes.device.type == "cuda":

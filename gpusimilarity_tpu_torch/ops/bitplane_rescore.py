@@ -15,33 +15,15 @@ bit on the card.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from ..utils import kernels
 from .bitplane import counters_to_counts, wallace_popcount_planes
 from .bitplane_phase1 import KERNEL_MAX_PLANES
 from .scan import TANIMOTO, TVERSKY, similarity_from_counts
 
-_LAUNCH_LOCK = threading.Lock()
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    with _LAUNCH_LOCK:
-        _launches = 0
-
-
-def _count_launch() -> None:
-    global _launches
-    with _LAUNCH_LOCK:
-        _launches += 1
+KERNEL = "bitplane_rescore"  # csrc/bitplane_rescore.cu
 
 
 def bitplane_rescore_plain(planes, pops, plane_idx, query_pops, w_sel, n_valid,
@@ -60,27 +42,11 @@ def bitplane_rescore_plain(planes, pops, plane_idx, query_pops, w_sel, n_valid,
     return torch.where(cols < n_valid, s, float("-inf")), cols
 
 
-_FN = None
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from ..utils import kernels
-
-        lib = kernels.load("bitplane_rescore").lib
-        fn = lib.gpusim_bitplane_rescore
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr] * 7 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ptr,
-        ]
-        fn.restype = ctypes.c_int
-        lib.gpusim_error_string.argtypes = [ctypes.c_int]
-        lib.gpusim_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.gpusim_error_string)
-    return _FN
+_ARGTYPES = [ctypes.c_void_p] * 7 + [
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p,
+]
 
 
 def bitplane_rescore_kernel(planes, pops, plane_idx, query_pops, w_sel,
@@ -101,22 +67,14 @@ def bitplane_rescore_kernel(planes, pops, plane_idx, query_pops, w_sel,
     cols = torch.empty((b, 32 * kw), dtype=torch.int64, device=planes.device)
     if b == 0 or kw == 0:
         return scores, cols
-    fn, err = _kernel_fn()
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    # the C launcher works on the thread's current device: make it the
-    # tensors' (a shard on another card, a card's worker thread)
-    with torch.cuda.device(planes.device):
-        rc = fn(
-            planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
-            query_pops.data_ptr(), w_sel.data_ptr(), scores.data_ptr(),
-            cols.data_ptr(), planes.shape[1], planes.shape[0], b, p, kw,
-            int(n_valid), int(similarity == TVERSKY), alpha, beta, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"bitplane rescore kernel launch failed: {err(rc).decode()}"
-        )
-    _count_launch()
+    kernels.launch(
+        KERNEL, kernels.bind(KERNEL, "gpusim_bitplane_rescore", _ARGTYPES),
+        planes.device,
+        planes.data_ptr(), pops.data_ptr(), plane_idx.data_ptr(),
+        query_pops.data_ptr(), w_sel.data_ptr(), scores.data_ptr(),
+        cols.data_ptr(), planes.shape[1], planes.shape[0], b, p, kw,
+        int(n_valid), int(similarity == TVERSKY), alpha, beta,
+    )
     return scores, cols
 
 
@@ -145,18 +103,11 @@ def bitplane_rescore(
     b, p = plane_idx.shape
     m = planes.shape[1]
     args = (planes, pops, plane_idx, query_pops, w_sel)
-    for t, dtype, shape in zip(
+    kernels.check_inputs(zip(
         args,
         (torch.int32, torch.int16, torch.int32, torch.int32, torch.int64),
         ((planes.shape[0], m), (32 * m,), (b, p), (b,), (b, w_sel.shape[-1])),
-    ):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"expected contiguous {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if t.device != planes.device:
-            raise ValueError("all inputs must be on one device")
+    ))
     if planes.device.type == "cuda":
         return bitplane_rescore_kernel(*args, n_valid, similarity, alpha, beta)
     if planes.device.type == "cpu":

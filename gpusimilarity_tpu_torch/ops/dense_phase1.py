@@ -17,11 +17,13 @@ kernel matches bit for bit on the card.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
+from ..utils import kernels
 from .scan import TANIMOTO, TVERSKY, score_columns
+
+KERNEL = "dense_phase1"  # csrc/dense_phase1.cu
 
 # the selection blocks the kernel takes: a power of two of whole 8-column
 # tiles of the tensor-core product (the plain version takes 1..MAX_BLOCK)
@@ -34,32 +36,11 @@ KERNEL_MAX_WORDS = 64
 # memory), 16 at rows over 32 words (gpusim_dense_phase1_max_queries)
 KERNEL_MAX_QUERIES, KERNEL_MAX_QUERIES_WIDE = 32, 16
 
-_LAUNCH_LOCK = threading.Lock()
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    with _LAUNCH_LOCK:
-        _launches = 0
-
-
 def kernel_launches(b: int, wf: int) -> int:
     """The kernel launches one call makes for ``b`` queries of ``wf`` words:
     one per slice of the batch."""
     per_launch = KERNEL_MAX_QUERIES if wf <= 32 else KERNEL_MAX_QUERIES_WIDE
     return -(-b // per_launch)
-
-
-def _count_launches(n: int) -> None:
-    global _launches
-    with _LAUNCH_LOCK:
-        _launches += n
 
 
 def dense_phase1_plain(
@@ -102,24 +83,9 @@ def dense_phase1_plain(
     return block_max, counts
 
 
-_FN = None
-
-
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        from ..utils import kernels
-
-        lib = kernels.load("dense_phase1").lib
-        fn = lib.gpusim_dense_phase1
-        ptr = ctypes.c_void_p
-        ll, i32 = ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [ptr] * 8 + [ll, ll, i32, i32, i32, ll, i32, ptr]
-        fn.restype = ctypes.c_int
-        lib.gpusim_error_string.argtypes = [ctypes.c_int]
-        lib.gpusim_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.gpusim_error_string)
-    return _FN
+_ll, _i32 = ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = [ctypes.c_void_p] * 8 + [_ll, _ll, _i32, _i32, _i32, _ll, _i32,
+                                     ctypes.c_void_p]
 
 
 def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
@@ -143,25 +109,17 @@ def dense_phase1_kernel(words, pops, queries, query_pops, cutoffs, alpha_beta,
             f"({32 * KERNEL_MAX_WORDS} bits), got {wf}"
         )
     b = queries.shape[0]
-    fn, err = _kernel_fn()
     block_max = torch.empty((b, n // block), dtype=torch.float32, device=words.device)
     counts = torch.zeros(b, dtype=torch.int64, device=words.device)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    # the C launcher works on the thread's current device: make it the
-    # tensors' (a shard on another card, a worker thread)
-    with torch.cuda.device(words.device):
-        rc = fn(
-            words.data_ptr(), 0 if pops is None else pops.data_ptr(),
-            queries.data_ptr(), query_pops.data_ptr(), cutoffs.data_ptr(),
-            alpha_beta.data_ptr(), block_max.data_ptr(), counts.data_ptr(),
-            n, words.stride(0), wf, b, block, int(n_valid),
-            int(similarity == TVERSKY), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"dense phase-1 kernel launch failed: {err(rc).decode()}"
-        )
-    _count_launches(kernel_launches(b, wf))
+    kernels.launch(
+        KERNEL, kernels.bind(KERNEL, "gpusim_dense_phase1", _ARGTYPES),
+        words.device,
+        words.data_ptr(), 0 if pops is None else pops.data_ptr(),
+        queries.data_ptr(), query_pops.data_ptr(), cutoffs.data_ptr(),
+        alpha_beta.data_ptr(), block_max.data_ptr(), counts.data_ptr(),
+        n, words.stride(0), wf, b, block, int(n_valid),
+        int(similarity == TVERSKY), n=kernel_launches(b, wf),
+    )
     return block_max, counts
 
 
@@ -196,18 +154,11 @@ def dense_phase1(
     b = queries.shape[0]
     if words.dtype != torch.int32 or words.stride(1) != 1:
         raise ValueError("words must be int32 (Wf, N) with unit column stride")
-    args = [(queries, torch.int32, (b, wf)), (query_pops, torch.int32, (b,)),
-            (cutoffs, torch.float32, (b,)), (alpha_beta, torch.float32, (2,))]
+    specs = [(queries, torch.int32, (b, wf)), (query_pops, torch.int32, (b,)),
+             (cutoffs, torch.float32, (b,)), (alpha_beta, torch.float32, (2,))]
     if pops is not None:
-        args.append((pops, torch.int16, (n,)))
-    for t, dtype, shape in args:
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"expected contiguous {dtype} {shape}, got {t.dtype} "
-                f"{tuple(t.shape)}"
-            )
-        if t.device != words.device:
-            raise ValueError("all inputs must be on one device")
+        specs.append((pops, torch.int16, (n,)))
+    kernels.check_inputs(specs, words.device)
     if not 1 <= block <= MAX_BLOCK or block & (block - 1) or n % block:
         raise ValueError(
             f"block {block} must be a power of two <= {MAX_BLOCK} dividing {n}"

@@ -70,7 +70,6 @@ import numpy as np
 import torch
 
 from ..models.fingerprint_db import _k_bucket
-from ..ops import bitplane_phase1, bitplane_rescore, dense_phase1
 from ..ops.bitplane import PLANE_BUCKETS, query_plane_indices
 from ..ops.fold import fold_words, overfetch_count
 from ..ops.scan import popcount_rows, popcount_rows_np, scores_np
@@ -87,7 +86,7 @@ from ..parallel.sharded import (
     shard_rows,
     sharded_local_topk,
 )
-from ..utils import native
+from ..utils import kernels, native
 from ..utils.synth import (
     VirtualWords,
     aligned_virtual_rows,
@@ -567,9 +566,7 @@ def main(argv=None) -> int:
     ]
     last_err = None
     for rows in (rows_env, *fallbacks):
-        bitplane_phase1.reset_launch_count()
-        bitplane_rescore.reset_launch_count()
-        dense_phase1.reset_launch_count()
+        kernels.reset_launches()
         try:
             payload = _run_fold(rows, fold, mesh) if fold > 1 else _run(rows, mesh)
         except torch.cuda.OutOfMemoryError as e:
@@ -578,11 +575,7 @@ def main(argv=None) -> int:
             last_err = RuntimeError(str(e)[:2000])
             _log(f"# out of device memory at {rows:,} rows; retrying with fewer")
         else:
-            payload["kernel_launches"] = {
-                "bitplane_phase1": bitplane_phase1.launch_count(),
-                "bitplane_rescore": bitplane_rescore.launch_count(),
-                "dense_phase1": dense_phase1.launch_count(),
-            }
+            payload["kernel_launches"] = kernels.launch_counts()
             print(json.dumps(payload), flush=True)
             return 0
         _free_timed_store()

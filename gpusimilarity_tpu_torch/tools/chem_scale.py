@@ -168,7 +168,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from ..models.fingerprint_db import FingerprintDB
-    from ..ops import bitplane_phase1, bitplane_rescore, dense_phase1
+    from ..utils import kernels
     from ..utils.tfsim import load_native
     from .loadtest import card
 
@@ -178,9 +178,7 @@ def main(argv=None) -> int:
     words = data.packed_words()
     rng = np.random.default_rng(5)
     ok = exact_id = 0
-    bitplane_phase1.reset_launch_count()
-    bitplane_rescore.reset_launch_count()
-    dense_phase1.reset_launch_count()
+    kernels.reset_launches()
     for qi in rng.choice(args.rows, size=args.sample, replace=False):
         r = db.search(np.array(words[qi]), k=5, dbkey="bulk")
         # rank 0 must be a row with the query's words at exactly 1.0 (the
@@ -192,9 +190,7 @@ def main(argv=None) -> int:
             ok += 1
         if any(f"MOL{qi:08d}" == i for j in r.ids for i in j.split(";:;")):
             exact_id += 1
-    launches = {"bitplane_phase1": bitplane_phase1.launch_count(),
-                "bitplane_rescore": bitplane_rescore.launch_count(),
-                "dense_phase1": dense_phase1.launch_count()}
+    launches = kernels.launch_counts()
     record = {
         "metric": "createdb_mols_per_sec",
         "unit": "mol/s",

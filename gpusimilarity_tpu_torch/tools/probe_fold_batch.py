@@ -40,13 +40,12 @@ import torch
 
 from ..models.fingerprint_db import FingerprintDB, _k_bucket
 from ..ops import bitplane_phase1 as ph1
-from ..ops import bitplane_rescore
 from ..ops import fold as fold_ops
 from ..ops.bitplane import query_plane_indices
 from ..ops.scan import popcount_rows_np
 from ..parallel import sharded
 from ..parallel.mesh import select_device
-from ..utils import synth
+from ..utils import kernels, synth
 from ..utils.fsim import FingerprintData
 from ..utils.strings import ConstantStringTable
 from .loadtest import card
@@ -121,8 +120,7 @@ def stage_line(s, args, stage: str, fn, bound=None) -> float:
 def main(argv=None) -> int:
     args = parse_args(argv, __doc__.splitlines()[0])
     s = folded_search_setup(args)
-    ph1.reset_launch_count()
-    bitplane_rescore.reset_launch_count()
+    kernels.reset_launches()
     p1 = stage_line(s, args, "phase1", lambda: ph1.bitplane_phase1_batched(
         s.store.planes, s.store.popcounts, s.idx, s.qpops, s.cutoffs, s.ab,
         s.store.n_valid))
@@ -136,8 +134,7 @@ def main(argv=None) -> int:
         "selection_ms": round(local - p1, 4),
         "host_and_rescore_ms": round(engine - local, 4),
         "kernel_bound_ms": round(s.bound_ms, 4),
-        "kernel_launches": {"bitplane_phase1": ph1.launch_count(),
-                            "bitplane_rescore": bitplane_rescore.launch_count()},
+        "kernel_launches": kernels.launch_counts(kernels.PASS_KERNELS["bitplane"]),
         "card": s.card,
     }), flush=True)
     return 0

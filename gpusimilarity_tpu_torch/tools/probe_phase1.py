@@ -37,6 +37,7 @@ import torch
 from ..ops import bitplane_phase1 as ph1
 from ..ops.bitplane import plane_bucket_for
 from ..parallel.mesh import select_device
+from ..utils import kernels
 from .loadtest import card
 from .probe_mxu import bitplane_bound, random_words, time_ms
 
@@ -71,7 +72,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     device = select_device(args.cpu_only)
     m = -(-args.rows // 2048) * 64  # plane words, whole selection blocks
-    ph1.reset_launch_count()
+    kernels.reset_launches()
     gen = torch.Generator(device=device).manual_seed(0)
     planes = random_words((BITCOUNT + 1, m), device, gen)
     planes[BITCOUNT] = 0  # the sentinel plane
@@ -100,14 +101,14 @@ def main(argv=None) -> int:
         ms = time_ms(run, device, args.repeats)
         bound, by = bitplane_bound(idx, m, b)
         print(json.dumps({
-            "kernel": "bitplane_phase1", "rows": args.rows, "batch": b,
+            "kernel": ph1.KERNEL, "rows": args.rows, "batch": b,
             "qpop": qpop, "bucket": bucket, "repeated_query": repeated,
             "ms": round(ms, 4), "floor_ms": round(floor, 4),
             "bound_ms": round(bound, 4), "bound_by": by,
             "share": round(bound / ms, 3), "device": str(device), "card": name,
         }), flush=True)
     print(json.dumps({"probe": "probe_phase1", "configurations": len(CONFIGS),
-                      "kernel_launches": {"bitplane_phase1": ph1.launch_count()},
+                      "kernel_launches": kernels.launch_counts([ph1.KERNEL]),
                       "card": name}), flush=True)
     return 0
 

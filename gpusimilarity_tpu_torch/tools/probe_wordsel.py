@@ -36,8 +36,8 @@ import json
 import sys
 
 from ..ops import bitplane_phase1 as ph1
-from ..ops import bitplane_rescore
 from ..parallel.sharded import rescore_words, select_blocks, select_words
+from ..utils import kernels
 from .probe_fold_batch import folded_search_setup, parse_args, stage_line
 from .probe_mxu import bound
 
@@ -60,8 +60,7 @@ def stage_bytes(b: int, n_blocks: int, k: int, set_planes: int) -> tuple[int, in
 def main(argv=None) -> int:
     args = parse_args(argv, __doc__.splitlines()[0])
     s = folded_search_setup(args)
-    ph1.reset_launch_count()
-    bitplane_rescore.reset_launch_count()
+    kernels.reset_launches()
     block_max, _counts, colmax = ph1.bitplane_phase1_batched(
         s.store.planes, s.store.popcounts, s.idx, s.qpops, s.cutoffs, s.ab,
         s.store.n_valid)
@@ -92,8 +91,7 @@ def main(argv=None) -> int:
         "batch": args.batch, "k_fetch": k, "n_blocks": block_max.shape[1],
         "s1_ms": round(t1, 4), "s2_delta_ms": round(t2 - t1, 4),
         "s3_delta_ms": round(t3 - t2, 4),
-        "kernel_launches": {"bitplane_phase1": ph1.launch_count(),
-                            "bitplane_rescore": bitplane_rescore.launch_count()},
+        "kernel_launches": kernels.launch_counts(kernels.PASS_KERNELS["bitplane"]),
         "card": s.card,
     }), flush=True)
     return 0

@@ -98,7 +98,7 @@ def main(argv=None):
         raise RuntimeError("the timing needs a CUDA card")
     dev = torch.device("cuda", 0)
     card = card_line()
-    for name in ("mxu_phase1", "dense_phase1"):
+    for name in (ph3.KERNEL, ph2.KERNEL):
         build = kernels.load(name)
         for line in build.log.splitlines():
             if "registers" in line or "spill" in line:

@@ -17,6 +17,13 @@ The build dir is ``build/gpusim_torch`` in the checkout when the package
 runs from source (``build/`` is git-ignored), and ``gpusim_torch`` under
 the user's cache directory (``$XDG_CACHE_HOME``, else ``~/.cache``) when it
 is installed.
+
+Every launch of a kernel goes through this module: a wrapper in ``ops/``
+binds its C entry once (:func:`bind`), checks its inputs
+(:func:`check_inputs`) and calls :func:`launch`, which runs the entry on
+the tensors' card and stream, raises on its error code and counts the
+launch (:func:`launches`, :func:`launch_counts`). Adding a kernel is a
+``csrc/<name>.cu``, its wrapper ``ops/<name>.py`` and its name here.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -40,12 +48,23 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# every kernel of the package, by source name
-KERNELS = ("bitplane_phase1", "bitplane_rescore", "dense_phase1", "mxu_phase1")
+# the kernels one search pass launches, by scan mode, its phase 1 first
+PASS_KERNELS = {
+    "bitplane": ("bitplane_phase1", "bitplane_rescore"),
+    "dense": ("dense_phase1",),
+}
+# the kernels a server builds and counts in /stats
+SERVED = tuple(name for names in PASS_KERNELS.values() for name in names)
+# every kernel of the package, by source name: the served ones and the
+# matrix-product scan, which only its probe runs
+KERNELS = (*SERVED, "mxu_phase1")
 
 _LOCK = threading.Lock()
 _NAME_LOCKS: dict[str, threading.Lock] = {}
 _LOADED: dict[str, "Build"] = {}
+_BOUND: dict[tuple[str, str], object] = {}
+_COUNT_LOCK = threading.Lock()
+_LAUNCHES: Counter[str] = Counter()
 
 
 @dataclass(frozen=True)
@@ -158,3 +177,67 @@ def load(name: str) -> Build:
         loaded = Build(ctypes.CDLL(str(out)), out, seconds, log)
         _LOADED[name] = loaded
         return loaded
+
+
+def bind(kernel: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """The C function ``symbol`` of ``kernel``'s library (:func:`load`),
+    its signature declared once; later calls return the same function."""
+    fn = _BOUND.get((kernel, symbol))
+    if fn is None:
+        fn = getattr(load(kernel).lib, symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _BOUND[(kernel, symbol)] = fn
+    return fn
+
+
+def launch(kernel: str, fn, device, *args, n: int = 1) -> None:
+    """``fn(*args, stream)``: one call of ``kernel``'s bound C entry on the
+    current stream of ``device``, the tensors' card, made the thread's
+    current device for the call (the C launchers work on it: a shard on
+    another card, a card's worker thread). Raises ``RuntimeError`` with the
+    library's error string if the entry returns non-zero; otherwise counts
+    ``n``, the kernel launches the call made."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = fn(*args, stream)
+    if rc != 0:
+        error = bind(kernel, "gpusim_error_string", [ctypes.c_int], ctypes.c_char_p)
+        raise RuntimeError(f"{kernel} kernel launch failed: {error(rc).decode()}")
+    with _COUNT_LOCK:
+        _LAUNCHES[kernel] += n
+
+
+def launches(kernel: str) -> int:
+    """``kernel``'s launches since the last :func:`reset_launches`."""
+    return _LAUNCHES[kernel]
+
+
+def launch_counts(names=SERVED) -> dict[str, int]:
+    """``{name: launches}`` of ``names``, by default the served kernels."""
+    with _COUNT_LOCK:
+        return {name: _LAUNCHES[name] for name in names}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    with _COUNT_LOCK:
+        _LAUNCHES.clear()
+
+
+def check_inputs(specs, device=None) -> None:
+    """Raise ``ValueError`` unless every ``(tensor, dtype, shape)`` of
+    ``specs`` is contiguous, of that dtype and shape, and on ``device``
+    (by default the first tensor's)."""
+    specs = list(specs)
+    if device is None:
+        device = specs[0][0].device
+    for t, dtype, shape in specs:
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"expected contiguous {dtype} {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if t.device != device:
+            raise ValueError("all inputs must be on one device")

@@ -21,6 +21,7 @@ from gpusimilarity_tpu_torch.ops.bitplane_phase1 import KERNEL_MAX_PLANES
 from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np, similarity_from_counts
 from gpusimilarity_tpu_torch.parallel import mesh as pmesh
 from gpusimilarity_tpu_torch.parallel import sharded
+from gpusimilarity_tpu_torch.utils import kernels
 
 N_VALID = 60_001  # word 1875 holds columns 60000-60031: it crosses n_valid
 CROSSING_WORD, PADDING_WORD = N_VALID // 32, N_VALID // 32 + 25
@@ -114,7 +115,7 @@ def test_rescore_words_on_cpu_is_the_plain_chain(rows, cpu_store, similarity, bu
     src, q, idx, qp = _queries(rows, b, bucket, 0)
     w_sel = torch.from_numpy(_words(src, k, store.planes.shape[1], 1))
     alpha, beta = SIMILARITIES[similarity]
-    before = rescore.launch_count()
+    before = kernels.launches(rescore.KERNEL)
     want_s, want_cols = _from_rows(rows, q, w_sel.numpy(), similarity, alpha, beta)
     idx, qp = torch.from_numpy(idx), torch.from_numpy(qp)
     got_s, got_cols = rescore.bitplane_rescore(
@@ -125,7 +126,7 @@ def test_rescore_words_on_cpu_is_the_plain_chain(rows, cpu_store, similarity, bu
     vals, ind = sharded.rescore_words(store, idx, qp, w_sel, k, similarity, alpha, beta)
     want_vals, want_ind = sharded._topk_padded(want_s, want_cols, k)
     assert torch.equal(_bits(vals), _bits(want_vals)) and torch.equal(ind, want_ind)
-    assert rescore.launch_count() == before  # the CPU path never launches
+    assert kernels.launches(rescore.KERNEL) == before  # the CPU path never launches
 
 
 @pytest.mark.parametrize("case", ["dtype", "non_contiguous", "shape"])
@@ -170,11 +171,8 @@ def test_kernel_raises_on_a_plane_list_over_its_limit_and_on_host_tensors(rows,
 
 
 def test_the_kernel_is_built_and_served():
-    from gpusimilarity_tpu_torch.cli import server
-    from gpusimilarity_tpu_torch.utils import kernels
-
     assert "bitplane_rescore" in kernels.KERNELS
-    assert "bitplane_rescore" in server.SERVING_KERNELS
+    assert "bitplane_rescore" in kernels.SERVED
     files = kernels.source_files(kernels.CSRC / "bitplane_rescore.cu")
     assert [f.name for f in files] == ["bitplane_rescore.cu", "phase1_epilogue.cuh"]
 
@@ -191,7 +189,7 @@ def test_stats_count_the_rescore_launches(rows):
     reg.search_databases(["lib"], ["k"], rows[7], 5)
     launches = reg.stats()["kernel_launches"]
     assert set(launches) == {"bitplane_phase1", "bitplane_rescore", "dense_phase1"}
-    assert launches["bitplane_rescore"] == rescore.launch_count()
+    assert launches["bitplane_rescore"] == kernels.launches(rescore.KERNEL)
 
 
 # ------------------------------------------------------------------ the card
@@ -224,9 +222,9 @@ def test_kernel_matches_the_chain_on_cuda(rows, cuda_store, similarity, bucket, 
     alpha, beta = SIMILARITIES[similarity]
     args = (cuda_store.planes, cuda_store.popcounts, idx, qp, w_sel,
             cuda_store.n_valid, similarity, alpha, beta)
-    before = rescore.launch_count()
+    before = kernels.launches(rescore.KERNEL)
     s, cols = rescore.bitplane_rescore(*args)
-    assert rescore.launch_count() == before + 1
+    assert kernels.launches(rescore.KERNEL) == before + 1
     want_s, want_cols = rescore.bitplane_rescore_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(_bits(s), _bits(want_s))
@@ -250,13 +248,13 @@ def test_local_topk_with_the_kernel_is_the_chains(rows, cuda_store, similarity, 
     idx, qp = torch.from_numpy(idx).to(dev), torch.from_numpy(qp).to(dev)
     cut = torch.zeros(b, device=dev)
     alpha, beta = SIMILARITIES[similarity]
-    before = rescore.launch_count()
+    before = kernels.launches(rescore.KERNEL)
     got = sharded.bitplane_local_topk(cuda_store, idx, qp, cut, k, similarity, alpha, beta)
-    assert rescore.launch_count() == before + 1
+    assert kernels.launches(rescore.KERNEL) == before + 1
     _with_chain(monkeypatch)
     want = sharded.bitplane_local_topk(cuda_store, idx, qp, cut, k, similarity, alpha,
                                        beta)
-    assert rescore.launch_count() == before + 1
+    assert kernels.launches(rescore.KERNEL) == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -274,9 +272,9 @@ def test_shards_at_a_row_offset_match_the_chain(rows, cards, cuda_device, monkey
     assert [s.planes.device for s in store.shards] == devices
     _, _q, idx, qp = _queries(rows, 8, 64, seed=cards)
     cut = np.zeros(8, np.float32)
-    before = rescore.launch_count()
+    before = kernels.launches(rescore.KERNEL)
     got = sharded.sharded_local_topk(store, idx, qp, cut, 20)
-    assert rescore.launch_count() == before + 2  # one a shard
+    assert kernels.launches(rescore.KERNEL) == before + 2  # one a shard
     _with_chain(monkeypatch)
     want = sharded.sharded_local_topk(store, idx, qp, cut, 20)
     for g, w in zip(got, want):

@@ -27,6 +27,7 @@ from gpusimilarity_tpu_torch.ops import dense_phase1 as ph1
 from gpusimilarity_tpu_torch.ops.fold import fold_words
 from gpusimilarity_tpu_torch.ops.scan import full_scan_topk, popcount_rows, popcount_rows_np
 from gpusimilarity_tpu_torch.parallel import sharded
+from gpusimilarity_tpu_torch.utils import kernels
 
 # name -> (rows, n_valid, queries, cutoffs, similarity, alpha/beta, chunk,
 #          block, shard offset, popless); test_pallas.py's cases
@@ -111,9 +112,9 @@ def test_plain_phase1_matches_pallas_interpret(name):
     )
     jbmax, jcnt = np.asarray(jbmax), np.asarray(jcnt)
 
-    launches = ph1.launch_count()
+    launches = kernels.launches(ph1.KERNEL)
     bmax, cnt = ph1.dense_phase1(*_port_args(c))
-    assert ph1.launch_count() == launches  # the CPU path never launches
+    assert kernels.launches(ph1.KERNEL) == launches  # the CPU path never launches
     assert bmax.dtype == torch.float32 and cnt.dtype == torch.int64
     np.testing.assert_array_equal(cnt.numpy(), jcnt)
     if c["sim"] == "tanimoto":
@@ -380,9 +381,9 @@ def test_kernel_matches_plain_on_cuda(name, cuda_device):
     (blocks of 4 widened to the kernel's narrowest, 8)."""
     args = list(_port_args(_case(name), cuda_device))
     args[7] = max(args[7], ph1.KERNEL_MIN_BLOCK)
-    before = ph1.launch_count()
+    before = kernels.launches(ph1.KERNEL)
     bmax, cnt = ph1.dense_phase1(*args)
-    assert ph1.launch_count() == before + 1
+    assert kernels.launches(ph1.KERNEL) == before + 1
     pbmax, pcnt = ph1.dense_phase1_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
@@ -433,9 +434,9 @@ def test_kernel_forks_match_plain_on_cuda(name, cuda_device):
     Tversky, popless, batches of 1, 5, 32, 48 and 128, rows of 4, 8, 16 and
     32 words, ``n_valid`` off a block boundary."""
     args = _fork_args(name, cuda_device)
-    before = ph1.launch_count()
+    before = kernels.launches(ph1.KERNEL)
     bmax, cnt = ph1.dense_phase1(*args)
-    assert ph1.launch_count() - before == ph1.kernel_launches(*args[2].shape)
+    assert kernels.launches(ph1.KERNEL) - before == ph1.kernel_launches(*args[2].shape)
     pbmax, pcnt = ph1.dense_phase1_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(bmax.view(torch.int32), pbmax.view(torch.int32))
@@ -451,20 +452,17 @@ def test_launch_count_is_the_kernels_slices_on_cuda(wf, cuda_device):
     and a batch of 40 counts as that many launches."""
     import ctypes
 
-    from gpusimilarity_tpu_torch.utils import kernels
-
-    fn = kernels.load("dense_phase1").lib.gpusim_dense_phase1_max_queries
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    fn = kernels.bind(ph1.KERNEL, "gpusim_dense_phase1_max_queries", [ctypes.c_int])
     assert fn(wf) == (ph1.KERNEL_MAX_QUERIES if wf <= 32 else ph1.KERNEL_MAX_QUERIES_WIDE)
     rng = np.random.default_rng(wf)
     words = torch.from_numpy(rng.integers(0, 2**31, (wf, 2048), dtype=np.int32)).to(cuda_device)
     q = words[:, :40].T.contiguous()
-    before = ph1.launch_count()
+    before = kernels.launches(ph1.KERNEL)
     _bmax, cnt = ph1.dense_phase1(
         words, None, q, popcount_rows(q), torch.zeros(40, device=cuda_device),
         torch.ones(2, device=cuda_device), 2048, 256)
     torch.cuda.synchronize()
-    assert ph1.launch_count() - before == -(-40 // fn(wf)) == ph1.kernel_launches(40, wf)
+    assert kernels.launches(ph1.KERNEL) - before == -(-40 // fn(wf)) == ph1.kernel_launches(40, wf)
     assert cnt.tolist() == [2048] * 40
 
 

@@ -64,7 +64,7 @@ def test_the_base_has_nvcc_and_the_build_step_uses_the_ports_build_functions(mon
     monkeypatch.setattr(kernels, "build", lambda name: built.append(name) or (name, 0.0, ""))
     monkeypatch.setattr(native, "build", lambda: built.append("native") or ("native", 0.0))
     exec(compile(code, "Dockerfile.cuda", "exec"), {})
-    assert built == [*port_server.SERVING_KERNELS, "native"]
+    assert built == [*kernels.SERVED, "native"]
 
 
 def test_the_entry_module_imports_and_its_arguments_parse():

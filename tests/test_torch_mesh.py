@@ -16,6 +16,7 @@ with cards and no JAX the ``cuda`` tests run alone with::
 """
 
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,12 +24,17 @@ import torch
 
 from gpusimilarity_tpu_torch.models.fingerprint_db import FingerprintDB
 from gpusimilarity_tpu_torch.models.registry import DatabaseRegistry
-from gpusimilarity_tpu_torch.ops import bitplane_phase1, dense_phase1, mxu_phase1
+from gpusimilarity_tpu_torch.ops import (
+    bitplane_phase1,
+    bitplane_rescore,
+    dense_phase1,
+    mxu_phase1,
+)
 from gpusimilarity_tpu_torch.ops.scan import scores_np
 from gpusimilarity_tpu_torch.ops.topk import merge_topk
 from gpusimilarity_tpu_torch.parallel import mesh as pmesh
 from gpusimilarity_tpu_torch.parallel import multihost, sharded
-from gpusimilarity_tpu_torch.utils import synth
+from gpusimilarity_tpu_torch.utils import kernels, synth
 from gpusimilarity_tpu_torch.utils.fsim import FingerprintData
 
 N_ROWS = 5000
@@ -404,9 +410,11 @@ class _FakeCuda:
         return _FakeCuda(self._t[key], self.device)
 
 
-def _fake_launch_env(monkeypatch, module, n_helpers):
+def _fake_launch_env(monkeypatch):
     """Fakes of ``torch.cuda.device``, the stream, CUDA allocation and the
-    loaded library; returns the list of devices current at each launch."""
+    loaded libraries, whose C entries are Python functions (a kernel's
+    launcher records the current device and returns 0, a scratch query
+    returns 1); returns the list of devices current at each launch."""
     current, seen = [], []
 
     class FakeDevice:
@@ -436,9 +444,17 @@ def _fake_launch_env(monkeypatch, module, n_helpers):
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch, "empty", on_fake_device(real_empty))
     monkeypatch.setattr(torch, "zeros", on_fake_device(real_zeros))
-    helpers = [lambda *a: 1] * n_helpers
-    monkeypatch.setattr(module, "_kernel_fn",
-                        lambda: (launch, lambda rc: b"", *helpers))
+
+    class FakeLib:
+        def __getattr__(self, symbol):
+            def helper(*args):
+                return 1
+
+            return launch if symbol.removeprefix("gpusim_") in kernels.KERNELS else helper
+
+    monkeypatch.setattr(kernels, "load",
+                        lambda name: kernels.Build(FakeLib(), Path(name), 0.0, ""))
+    monkeypatch.setattr(kernels, "_BOUND", {})
     return seen
 
 
@@ -447,21 +463,28 @@ def _on(device, *tensors):
 
 
 LAUNCHES = {
-    "bitplane_phase1": (bitplane_phase1, 1, lambda dev: (
+    "bitplane_phase1": (bitplane_phase1, lambda dev: (
         bitplane_phase1.bitplane_phase1_kernel(*_on(
             dev, torch.zeros((33, 64), dtype=torch.int32),
             torch.zeros(2048, dtype=torch.int16),
             torch.zeros((2, 4), dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32), torch.zeros(2),
             torch.ones(2)), 2000))),
-    "dense_phase1": (dense_phase1, 0, lambda dev: (
+    "bitplane_rescore": (bitplane_rescore, lambda dev: (
+        bitplane_rescore.bitplane_rescore_kernel(*_on(
+            dev, torch.zeros((33, 64), dtype=torch.int32),
+            torch.zeros(2048, dtype=torch.int16),
+            torch.zeros((2, 4), dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32),
+            torch.zeros((2, 3), dtype=torch.int64)), 2000))),
+    "dense_phase1": (dense_phase1, lambda dev: (
         dense_phase1.dense_phase1_kernel(*_on(
             dev, torch.zeros((32, 512), dtype=torch.int32),
             torch.zeros(512, dtype=torch.int16),
             torch.zeros((2, 32), dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32), torch.zeros(2),
             torch.ones(2)), 500, 256))),
-    "mxu_phase1": (mxu_phase1, 1, lambda dev: (
+    "mxu_phase1": (mxu_phase1, lambda dev: (
         mxu_phase1.mxu_phase1_kernel(*_on(
             dev, torch.zeros((32, 512), dtype=torch.int32),
             torch.zeros(512, dtype=torch.int16),
@@ -473,16 +496,16 @@ LAUNCHES = {
 
 @pytest.mark.parametrize("name", sorted(LAUNCHES))
 def test_every_launch_runs_under_its_tensors_device(name, monkeypatch):
-    """Each ctypes launch of ``ops/*_phase1.py`` runs inside
+    """Each ctypes launch of a kernel's wrapper runs inside
     ``torch.cuda.device(<the tensors' device>)``: the C launchers use the
     thread's current device, and a shard on ``cuda:1`` must not launch
     against ``cuda:0``."""
-    module, n_helpers, call = LAUNCHES[name]
-    seen = _fake_launch_env(monkeypatch, module, n_helpers)
-    before = module.launch_count()
+    module, call = LAUNCHES[name]
+    seen = _fake_launch_env(monkeypatch)
+    before = kernels.launches(module.KERNEL)
     call(torch.device("cuda", 1))
     assert seen and all(d == torch.device("cuda", 1) for d in seen), seen
-    assert module.launch_count() > before
+    assert kernels.launches(module.KERNEL) > before
 
 
 # -------------------------------------------------------------- two cards

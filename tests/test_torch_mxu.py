@@ -28,6 +28,7 @@ import torch
 from gpusimilarity_tpu_torch.ops import dense_phase1 as ph2
 from gpusimilarity_tpu_torch.ops import mxu_phase1 as ph3
 from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+from gpusimilarity_tpu_torch.utils import kernels
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -110,9 +111,9 @@ def test_plain_phase1_matches_pallas_interpret(name, int8_mxu):
     )
     jbmax, jcnt = np.asarray(jbmax), np.asarray(jcnt)
 
-    launches = ph3.launch_count()
-    bmax, cnt = ph3.mxu_phase1(*_port_args(c), int8_mxu)
-    assert ph3.launch_count() == launches  # the CPU path never launches
+    launches = kernels.launches(ph3.KERNEL)
+    bmax, cnt = ph3.mxu_phase1(*_port_args(c))  # one product: binary
+    assert kernels.launches(ph3.KERNEL) == launches  # the CPU path never launches
     assert bmax.dtype == torch.float32 and cnt.dtype == torch.int64
     np.testing.assert_array_equal(cnt.numpy(), jcnt)
     if c["sim"] == "tanimoto":
@@ -279,11 +280,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("int8_mxu", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("checked", [True, False], ids=["wrapper", "kernel"])
 @pytest.mark.parametrize("name", sorted(CUDA_CASES))
-def test_kernel_matches_plain_on_cuda(name, int8_mxu, cuda_device):
-    """The CUDA kernel and the plain version agree bit for bit on the card,
-    and with the dense kernel on the same store."""
+def test_kernel_matches_plain_on_cuda(name, checked, cuda_device):
+    """The CUDA kernel, through the checked wrapper or called directly, and
+    the plain version agree bit for bit on the card, and with the dense
+    kernel on the same store."""
     n, n_valid, offset, b, block, sim = CUDA_CASES[name]
     rng = np.random.default_rng(sum(map(ord, name)))
     words = _words(rng, n, 0.05)
@@ -292,10 +294,10 @@ def test_kernel_matches_plain_on_cuda(name, int8_mxu, cuda_device):
              cutoffs=np.where(np.arange(b) % 2, 0.35, 0.0).astype(np.float32),
              ab=np.float32([0.7, 0.3]), block=block, sim=sim)
     args = _port_args(c, cuda_device)
-    before = ph3.launch_count()
-    bmax, cnt = ph3.mxu_phase1(*args, int8_mxu)
-    assert ph3.launch_count() == before + -(-b // ph3.MAX_QUERIES)
-    pbmax, pcnt = ph3.mxu_phase1_plain(*args, int8_mxu)
+    before = kernels.launches(ph3.KERNEL)
+    bmax, cnt = (ph3.mxu_phase1 if checked else ph3.mxu_phase1_kernel)(*args)
+    assert kernels.launches(ph3.KERNEL) == before + -(-b // ph3.MAX_QUERIES)
+    pbmax, pcnt = ph3.mxu_phase1_plain(*args)
     dbmax, dcnt = ph2.dense_phase1(
         args[0], args[1], _t(queries.view(np.int32), cuda_device), *args[3:6],
         n_valid - offset, block, sim,

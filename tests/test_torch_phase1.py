@@ -27,6 +27,7 @@ from gpusimilarity_tpu_torch.ops.bitplane import (
     query_plane_indices,
 )
 from gpusimilarity_tpu_torch.ops.scan import popcount_rows_np
+from gpusimilarity_tpu_torch.utils import kernels
 
 M8S, N_PAD, N_VALID = 256, 65536, 60000
 
@@ -117,9 +118,9 @@ def test_plain_phase1_matches_pallas_interpret(library, case):
     jcolmax = np.asarray(jcolmax).reshape(len(q), -1)
 
     similarity, args = _port(library, case)
-    launches = ph1.launch_count()
+    launches = kernels.launches(ph1.KERNEL)
     bmax, cnt, colmax = ph1.bitplane_phase1_batched(*args, N_VALID, similarity)
-    assert ph1.launch_count() == launches  # the CPU path never launches
+    assert kernels.launches(ph1.KERNEL) == launches  # the CPU path never launches
     if similarity == "tanimoto":
         np.testing.assert_array_equal(
             colmax.numpy().view(np.int32), jcolmax.view(np.int32)
@@ -164,8 +165,6 @@ def test_wrapper_validates_inputs(library):
 def test_build_dir_in_source_tree_else_user_cache(tmp_path, monkeypatch):
     """Kernels build inside the source tree; an installed package (no
     ``pyproject.toml`` beside it) builds under the user's cache directory."""
-    from gpusimilarity_tpu_torch.utils import kernels
-
     src = tmp_path / "src"
     (src / "pkg").mkdir(parents=True)
     (src / "pyproject.toml").write_text("")
@@ -181,8 +180,6 @@ def test_kernel_digest_covers_included_headers(tmp_path):
     """The name of a build hashes the source and every header it includes by
     a quoted name, through other headers too: editing any of them rebuilds,
     editing a file that is not included does not."""
-    from gpusimilarity_tpu_torch.utils import kernels
-
     (tmp_path / "k.cu").write_text('#include <stdint.h>\n  #  include "a.cuh"\nint k;\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n#include "a.cuh"\n')
     (tmp_path / "b.cuh").write_text("#pragma once\n")
@@ -212,9 +209,9 @@ def cuda_device():
 def test_kernel_matches_plain_on_cuda(library, case, cuda_device):
     """The CUDA kernel and the plain version agree bit for bit on the card."""
     similarity, args = _port(library, case, cuda_device)
-    before = ph1.launch_count()
+    before = kernels.launches(ph1.KERNEL)
     _b, cnt, colmax = ph1.bitplane_phase1_batched(*args, N_VALID, similarity)
-    assert ph1.launch_count() == before + 1
+    assert kernels.launches(ph1.KERNEL) == before + 1
     pcolmax, pcnt = ph1.bitplane_phase1_plain(*args, N_VALID, similarity)
     torch.cuda.synchronize()
     assert torch.equal(colmax.view(torch.int32), pcolmax.view(torch.int32))
